@@ -1,0 +1,26 @@
+"""gbrl_tpu_torch — Gradient Boosted Trees for Reinforcement Learning in
+PyTorch, with hand-written CUDA kernels for NVIDIA Hopper (H100).
+
+A port of ``gbrl_tpu`` (the JAX/Pallas package, kept as the reference).
+It imports ``torch`` and ``numpy`` only, never ``jax`` or ``gbrl_tpu``.
+Every entry point takes ``device`` ("cuda" by default); asking for "cuda"
+without a card raises.  This first slice serves predictions from saved
+ensembles (shared/separate actor-critic) through the K4/K5 predict kernels
+(``ops/kernels.py``, ``csrc/predict.cu``); fitting comes with later slices
+(ROADMAP.md).
+"""
+import torch as _torch
+
+from .config import TreeConfig, APPROVED_OPTIMIZERS, VALID_OPTIMIZER_ARGS  # noqa: F401
+from .ensemble import Ensemble, init_ensemble  # noqa: F401
+from .optimizers import OptimizerSpec  # noqa: F401
+from .models import ActorCritic  # noqa: F401
+from .learners import (GBTLearner, MultiGBTLearner,  # noqa: F401
+                       SharedActorCriticLearner, SeparateActorCriticLearner)
+
+__version__ = "0.1.0"
+
+
+def cuda_available() -> bool:
+    """True when PyTorch sees a CUDA device (reference: gbrl/__init__.py)."""
+    return _torch.cuda.is_available()

@@ -1,0 +1,412 @@
+"""GBTLearner: single-ensemble learner (counterpart of
+``gbrl_tpu/learners/gbt_learner.py``; reference gbrl/learners/gbt_learner.py).
+
+Owns one ``Ensemble`` of torch tensors on ``device`` and serves
+predictions from it.  Checkpoints are the JAX package's ``.gbrl_model``
+format (npz with a JSON ``__meta__``), so a checkpoint crosses between the
+two packages in both directions.  Fitting (``step``, ``fit``, ``distil``),
+SHAP and export come with later slices (ROADMAP.md) and raise
+``NotImplementedError`` here.
+"""
+from __future__ import annotations
+
+import hashlib
+import json
+from typing import Dict, List, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from ..common.utils import (CategoryVocab, NumericalData, ensure_leaf_output,
+                            get_index_mapping, is_torch, preprocess_features,
+                            to_numpy)
+from ..ensemble import (FIELDS, Ensemble, ensemble_from_numpy,
+                        ensemble_to_numpy, init_ensemble)
+from ..ops.boosting import predict_sgd
+from ..ops.predict import single_tree_leaf_values, weighted_leaf_sum
+from ..optimizers import OptimizerSpec, adam_delta, scheduler_lr, sgd_coeff
+from .base import BaseLearner, not_ported
+
+SAVE_SUFFIX = ".gbrl_model"
+# new trees since a cached prediction that are evaluated one by one; more
+# than this and the cached prediction is topped up with one delta sum
+MAX_SINGLE_TREE_UPDATES = 8
+
+
+def _cache_key(arrays) -> bytes:
+    """Exact predict-cache key: blake2b over the shape and every byte (the
+    JAX package's opt-in strided key is not carried over)."""
+    h = hashlib.blake2b(digest_size=16)
+    for arr in arrays:
+        a = np.ascontiguousarray(arr)
+        h.update(str(a.shape).encode())
+        h.update(memoryview(a).cast("B"))
+    return h.digest()
+
+
+def _predict_full(cfg, ens: Ensemble, Xn, specs, start_tree: int,
+                  stop_tree: int, Xc=None) -> torch.Tensor:
+    preds = predict_sgd(cfg, ens, Xn, specs, start_tree, stop_tree, Xc)
+    for spec in specs:
+        if spec.algo == "Adam":
+            preds = preds - adam_delta(cfg, ens, Xn, spec, start_tree,
+                                       stop_tree, Xc)
+    return preds
+
+
+def _predict_delta(cfg, ens: Ensemble, Xn, specs,
+                   start_tree: int) -> torch.Tensor:
+    """Bias-free sum of SGD tree updates over [start_tree, n_trees) — the
+    incremental part added on top of a cached prediction."""
+    coeff = sgd_coeff(specs, ens.capacity, cfg.output_dim, ens.n_trees,
+                      start_tree, ens.capacity)
+    return weighted_leaf_sum(cfg, ens, Xn, coeff)
+
+
+def _predict_one_tree(cfg, ens: Ensemble, Xn, specs, t: int) -> torch.Tensor:
+    """SGD update of the single tree at index t: O(N * depth) work
+    regardless of ensemble size."""
+    tree = dict(feat=ens.feat[t], thr=ens.thr[t], cat_code=ens.cat_code[t],
+                is_split=ens.is_split[t], is_numeric=ens.is_numeric[t],
+                leaf_values=ens.leaf_values[t])
+    v = single_tree_leaf_values(cfg, tree, Xn)               # [N, O]
+    O = cfg.output_dim
+    j = torch.arange(O, device=Xn.device)
+    tt = torch.tensor(t, dtype=torch.int32, device=Xn.device)
+    coeff = torch.zeros((O,), dtype=torch.float32, device=Xn.device)
+    for spec in specs:
+        mask = ((j >= spec.start_idx) & (j < spec.stop_idx)).to(torch.float32)
+        coeff = coeff - scheduler_lr(spec, tt) * mask
+    return v * coeff[None, :]
+
+
+class GBTLearner(BaseLearner):
+    def __init__(self, input_dim: int, output_dim: int, tree_struct: Dict,
+                 optimizers: Union[Dict, List[Dict], None],
+                 params: Dict = None, verbose: int = 0, device: str = "cuda",
+                 policy_dim: int = 0, name: str = "GBRL"):
+        super().__init__(input_dim, output_dim, tree_struct, optimizers,
+                         params, verbose, device)
+        self.learner_name = name
+        if policy_dim:
+            self.cfg = self.cfg.replace(policy_dim=policy_dim)
+        self.ens: Optional[Ensemble] = None
+        self.specs: Tuple[OptimizerSpec, ...] = ()
+        self.feature_weights = np.ones(input_dim, dtype=np.float32)
+        fw = self.params.get("feature_weights")
+        if fw is not None:
+            fw = np.asarray(fw, dtype=np.float32).reshape(-1)
+            assert len(fw) == input_dim, \
+                "feature weights dim must equal input dim"
+            assert (fw >= 0).all(), "feature weights must be non-negative"
+            self.feature_weights = fw
+        self.vocab: Optional[CategoryVocab] = None
+        self._mapping_set = False
+        self.num_mask = np.ones(input_dim, dtype=bool)   # original-order mask
+        self.total_iterations = 0
+        self._pred_cache = None   # (input-hash, n_trees, preds) for SGD delta
+
+    # ------------------------------------------------------------------ setup
+    def reset(self) -> None:
+        if self.optimizers is not None:
+            self.specs = tuple(OptimizerSpec.from_dict(o)
+                               for o in self.optimizers)
+            self._validate_specs()
+        self.ens = init_ensemble(self.cfg, device=self.torch_device)
+        self._mapping_set = False
+        self.total_iterations = 0
+        self._pred_cache = None
+
+    def _validate_specs(self) -> None:
+        """Column-range validation (reference: gbrl.cpp:452-525)."""
+        assert len(self.specs) <= self.output_dim, \
+            "number of optimizers must be <= output_dim"
+        for s in self.specs:
+            assert 0 <= s.start_idx < s.stop_idx <= self.output_dim, \
+                f"optimizer range [{s.start_idx}, {s.stop_idx}) invalid for " \
+                f"output_dim {self.output_dim}"
+
+    def set_feature_mapping(self, num_mask: np.ndarray) -> None:
+        """Record which original columns are numeric."""
+        num_mask = np.asarray(num_mask, dtype=bool)
+        assert len(num_mask) == self.input_dim
+        self.num_mask = num_mask
+        n_num = int(num_mask.sum())
+        n_cat = self.input_dim - n_num
+        self.cfg = self.cfg.replace(n_num_features=n_num, n_cat_features=n_cat)
+        if n_cat > 0 and self.vocab is None:
+            self.vocab = CategoryVocab(n_cat)
+        self._mapping_set = True
+
+    def _infer_mapping_from(self, inputs) -> None:
+        if self._mapping_set:
+            return
+        _, num_mask = get_index_mapping(inputs)
+        if len(num_mask) != self.input_dim:
+            # tuple input or already-split data: assume numeric-first layout
+            num, _ = preprocess_features(inputs)
+            n_num = 0 if num is None else num.shape[1]
+            num_mask = np.zeros(self.input_dim, dtype=bool)
+            num_mask[:n_num] = True
+        self.set_feature_mapping(num_mask)
+
+    def _disambiguate_1d(self, inputs):
+        """1D input of length input_dim is one sample; otherwise it is a
+        column of input_dim == 1 (binding.cpp:820-930)."""
+        if isinstance(inputs, tuple):
+            return inputs
+        if not hasattr(inputs, "ndim"):
+            inputs = np.asarray(inputs)
+        if inputs.ndim == 1:
+            if len(inputs) == self.input_dim and self.input_dim > 1:
+                return inputs.reshape(1, -1)
+            return inputs.reshape(-1, 1)
+        return inputs
+
+    def _prepare(self, inputs, grow_vocab: bool):
+        """inputs -> (Xn [N, Fn], Xc codes [N, Fc] | None, cache key | None),
+        tensors on the learner's device.
+
+        The predict-cache key is an exact blake2b hash of the host bytes.
+        Only host inputs (numpy arrays, CPU tensors) are keyed: hashing a
+        CUDA tensor would copy it to the host, so a CUDA input gets no key
+        and is always predicted in full (the RL loops pass host arrays)."""
+        inputs = self._disambiguate_1d(inputs)
+        self._infer_mapping_from(inputs)
+        if is_torch(inputs) and inputs.device.type != "cpu":
+            Xn = inputs.detach().to(self.torch_device, torch.float32)
+            return Xn.reshape(Xn.shape[0], -1).contiguous(), None, None
+        num, cat = preprocess_features(inputs)
+        if num is None:
+            num = np.zeros((cat.shape[0], 0), dtype=np.float32)
+        Xn = torch.from_numpy(num).to(self.torch_device)
+        if cat is None or cat.shape[1] == 0:
+            return Xn, None, _cache_key((num,))
+        codes = self.vocab.encode(cat, grow=grow_vocab)
+        return (Xn, torch.from_numpy(codes).to(self.torch_device),
+                _cache_key((num, codes)))
+
+    # ------------------------------------------------------------------ train
+    def step(self, inputs: NumericalData, grads: NumericalData) -> None:
+        raise not_ported("GBTLearner.step", "slice 2 (the fit path)")
+
+    def fit(self, *a, **k) -> float:
+        raise not_ported("GBTLearner.fit", "slice 2 (the fit path)")
+
+    def distil(self, *a, **k):
+        raise not_ported("GBTLearner.distil", "slice 2 (the fit path)")
+
+    # -------------------------------------------------------------- inference
+    def _predict_raw(self, inputs, start_idx: int = 0,
+                     stop_idx: Optional[int] = None) -> torch.Tensor:
+        """Predictions [N, output_dim] on the learner's device.
+
+        Full-range SGD predictions on a repeated host input are served
+        incrementally: only trees added since the cached call are evaluated
+        (leaf values are immutable once fit, so cache + delta reproduces a
+        full predict): up to MAX_SINGLE_TREE_UPDATES new trees one by one,
+        more as one delta sum."""
+        assert self.ens is not None, "call reset() first"
+        Xn, Xc, key = self._prepare(inputs, grow_vocab=False)
+        cacheable = (key is not None and (start_idx in (0, None))
+                     and (stop_idx in (None, 0)) and Xc is None
+                     and all(s.algo == "SGD" for s in self.specs))
+        preds = None
+        n_trees = self.get_num_trees() if cacheable else None
+        if cacheable and self._pred_cache is not None:
+            ckey, cn, cpred = self._pred_cache
+            if ckey == key and cn <= n_trees and \
+                    cpred.shape[0] == Xn.shape[0]:
+                if cn == n_trees:
+                    preds = cpred
+                elif n_trees - cn <= MAX_SINGLE_TREE_UPDATES:
+                    preds = cpred
+                    for t in range(cn, n_trees):
+                        preds = preds + _predict_one_tree(
+                            self.cfg, self.ens, Xn, self.specs, t)
+                else:
+                    preds = cpred + _predict_delta(self.cfg, self.ens, Xn,
+                                                   self.specs, cn)
+        if preds is None:
+            stop = stop_idx if stop_idx else int(self.ens.capacity)
+            preds = _predict_full(self.cfg, self.ens, Xn, self.specs,
+                                  start_idx or 0, stop, Xc)
+        if cacheable:
+            self._pred_cache = (key, n_trees, preds)
+        return preds
+
+    def predict(self, inputs: NumericalData, requires_grad: bool = True,
+                start_idx: int = 0, stop_idx: Optional[int] = None,
+                tensor: bool = True):
+        """Ensemble prediction over trees [start_idx, stop_idx)
+        (reference: gbt_learner.py:455-500).  Returns a leaf tensor on the
+        learner's device (``requires_grad`` as asked) or a numpy array."""
+        out = self._predict_raw(inputs, start_idx, stop_idx)
+        if self.output_dim == 1:
+            out = out.reshape(-1)     # binding.cpp:282-283: 1D for out_dim 1
+        return ensure_leaf_output(out, tensor, requires_grad)
+
+    def predict_async(self, inputs: NumericalData) -> torch.Tensor:
+        """Full-ensemble prediction [N, output_dim] on the device, returned
+        as soon as the work is queued: CUDA launches are asynchronous, so
+        the caller overlaps host work until it reads the result."""
+        assert self.ens is not None, "call reset() first"
+        Xn, Xc, _ = self._prepare(inputs, grow_vocab=False)
+        return _predict_full(self.cfg, self.ens, Xn, self.specs, 0,
+                             int(self.ens.capacity), Xc)
+
+    # ----------------------------------------------------------- introspection
+    def get_iteration(self) -> int:
+        return self.get_num_trees()
+
+    def get_num_trees(self) -> int:
+        return int(self.ens.n_trees) if self.ens is not None else 0
+
+    def get_total_iterations(self) -> int:
+        return self.total_iterations
+
+    def get_schedule_learning_rates(self):
+        t = torch.tensor(self.get_iteration(), dtype=torch.int32)
+        lrs = [float(scheduler_lr(s, t)) for s in self.specs]
+        return lrs[0] if len(lrs) == 1 else tuple(lrs)
+
+    def get_optimizers(self) -> list:
+        """Optimizer configuration as a list of dicts, one per optimizer,
+        with the reference binding's field names (binding.cpp:393-419)."""
+        return [dict(algo=s.algo, init_lr=float(s.init_lr),
+                     start_idx=int(s.start_idx),
+                     stop_idx=int(s.stop_idx) if s.stop_idx
+                     else self.output_dim,
+                     scheduler_func=s.scheduler, stop_lr=float(s.stop_lr),
+                     T=int(s.T), beta_1=float(s.beta_1),
+                     beta_2=float(s.beta_2), eps=float(s.eps))
+                for s in self.specs]
+
+    def set_bias(self, bias) -> None:
+        b = to_numpy(bias).reshape(-1)
+        assert len(b) == self.output_dim, \
+            f"bias length {len(b)} != output_dim {self.output_dim}"
+        self.ens = self.ens.replace(
+            bias=torch.from_numpy(b.copy()).to(self.torch_device))
+        self._pred_cache = None   # bias is baked into cached predictions
+
+    def get_bias(self) -> np.ndarray:
+        return self.ens.bias.cpu().numpy()
+
+    def set_feature_weights(self, feature_weights) -> None:
+        if np.isscalar(feature_weights):
+            fw = np.full(self.input_dim, feature_weights, dtype=np.float32)
+        else:
+            fw = to_numpy(feature_weights).reshape(-1)
+        assert len(fw) == self.input_dim, \
+            "feature weights dim must equal input dim"
+        assert (fw >= 0).all(), "feature weights must be non-negative"
+        self.feature_weights = fw
+
+    def get_feature_weights(self) -> np.ndarray:
+        return self.feature_weights.copy()
+
+    def get_metadata(self) -> Dict:
+        """Metadata dict (analog of binding.cpp get_metadata:309-328)."""
+        c = self.cfg
+        n = self.get_num_trees()
+        return dict(
+            input_dim=c.input_dim, output_dim=c.output_dim,
+            policy_dim=c.policy_dim, max_depth=c.max_depth,
+            min_data_in_leaf=c.min_data_in_leaf, n_bins=c.n_bins,
+            par_th=c.par_th, cv_beta=c.cv_beta,
+            split_score_func=c.split_score_func,
+            generator_type=c.generator_type,
+            use_control_variates=c.use_control_variates,
+            batch_size=c.batch_size, grow_policy=c.grow_policy,
+            n_trees=n, n_leaves=n * c.n_leaves, iteration=n)
+
+    def get_ensemble_data(self) -> Dict[str, np.ndarray]:
+        """The fitted trees' SoA arrays as numpy (binding.cpp:330-390)."""
+        n = self.get_num_trees()
+        data = {f: getattr(self.ens, f)[:n].cpu().numpy()
+                for f in FIELDS if f not in ("bias", "n_trees")}
+        data.update(bias=self.get_bias(), n_trees=n)
+        return data
+
+    def print_tree(self, tree_idx: int) -> None:
+        raise not_ported("print_tree", "the utils slice")
+
+    def plot_tree(self, tree_idx: int, filename: str) -> None:
+        raise not_ported("plot_tree", "the utils slice")
+
+    def tree_shap(self, tree_idx: int, features, ref_compat: bool = False):
+        raise not_ported("tree_shap", "the SHAP slice")
+
+    def shap(self, features, ref_compat: bool = False):
+        raise not_ported("shap", "the SHAP slice")
+
+    def export(self, filename: str, modelname: Optional[str] = None,
+               export_format: str = "float",
+               export_type: str = "full") -> None:
+        raise not_ported("export", "the utils slice")
+
+    # ------------------------------------------------------------- checkpoint
+    def save(self, filename: str) -> None:
+        """Write the JAX package's ``.gbrl_model`` format."""
+        filename = _with_suffix(filename)
+        state = ensemble_to_numpy(self.ens)
+        meta = dict(
+            input_dim=self.input_dim, output_dim=self.output_dim,
+            tree_struct=self.tree_struct, params={
+                k: v for k, v in self.params.items()
+                if k != "feature_weights"},
+            optimizers=self.optimizers, verbose=self.verbose,
+            device=self.device, total_iterations=self.total_iterations,
+            num_mask=self.num_mask.tolist(),
+            mapping_set=self._mapping_set,
+            vocab=self.vocab.to_state() if self.vocab else None,
+        )
+        with open(filename, "wb") as f:
+            np.savez_compressed(
+                f, __meta__=np.frombuffer(
+                    json.dumps(meta).encode(), dtype=np.uint8),
+                feature_weights=self.feature_weights, **state)
+
+    @classmethod
+    def load(cls, filename: str, device: str = "cuda") -> "GBTLearner":
+        """Read a ``.gbrl_model`` written by either package onto ``device``."""
+        filename = _with_suffix(filename)
+        with np.load(filename, allow_pickle=False) as data:
+            meta = json.loads(bytes(data["__meta__"]).decode())
+            arrs = {k: data[k] for k in FIELDS}
+            feature_weights = data["feature_weights"].copy()
+        learner = GBTLearner(input_dim=meta["input_dim"],
+                             output_dim=meta["output_dim"],
+                             tree_struct=meta["tree_struct"],
+                             optimizers=meta["optimizers"],
+                             params=meta["params"], verbose=meta["verbose"],
+                             device=device)
+        learner.reset()
+        learner.ens = ensemble_from_numpy(arrs, learner.torch_device)
+        learner.feature_weights = feature_weights
+        learner.total_iterations = meta["total_iterations"]
+        if meta["mapping_set"]:
+            learner.set_feature_mapping(np.asarray(meta["num_mask"], bool))
+        if meta["vocab"] is not None:
+            learner.vocab = CategoryVocab.from_state(meta["vocab"])
+        return learner
+
+    def __copy__(self) -> "GBTLearner":
+        c = GBTLearner(self.input_dim, self.output_dim, dict(self.tree_struct),
+                       [dict(o) for o in self.optimizers] if self.optimizers
+                       else None, dict(self.params), self.verbose, self.device)
+        c.cfg = self.cfg
+        c.specs = self.specs
+        c.ens = self.ens          # predict never writes the tensors in place
+        c.feature_weights = self.feature_weights.copy()
+        c.num_mask = self.num_mask.copy()
+        c._mapping_set = self._mapping_set
+        c.vocab = (CategoryVocab.from_state(self.vocab.to_state())
+                   if self.vocab else None)
+        c.total_iterations = self.total_iterations
+        return c
+
+
+def _with_suffix(filename: str) -> str:
+    return filename if filename.endswith(SAVE_SUFFIX) else filename + SAVE_SUFFIX

@@ -1,0 +1,179 @@
+"""Checkpoints cross between gbrl_tpu and gbrl_tpu_torch, and the port's
+learners predict what the JAX learners predict (CPU, rtol = atol = 1e-5).
+
+The JAX learners fit a few boosting steps; the port loads their
+``.gbrl_model`` files with ``device="cpu"``."""
+import copy
+
+import numpy as np
+import pytest
+import torch
+
+from gbrl_tpu.learners.actor_critic_learner import (
+    SeparateActorCriticLearner as JSeparate,
+    SharedActorCriticLearner as JShared)
+from gbrl_tpu.models.actor_critic import ActorCritic as JActorCritic
+
+from gbrl_tpu_torch.ensemble import ensemble_from_numpy, ensemble_to_numpy
+from gbrl_tpu_torch.learners import gbt_learner as port_gbt
+from gbrl_tpu_torch.learners.actor_critic_learner import (
+    SeparateActorCriticLearner, SharedActorCriticLearner)
+from gbrl_tpu_torch.models.actor_critic import ActorCritic
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+F, O, N = 6, 3, 160
+
+
+def _opts(policy_algo):
+    pol = dict(algo=policy_algo, init_lr=0.05 if policy_algo == "Adam"
+               else 0.3, start_idx=0, stop_idx=O - 1)
+    val = dict(algo="SGD", scheduler="Linear", init_lr=0.2, stop_lr=0.01,
+               T=8, start_idx=O - 1, stop_idx=O)
+    return pol, val
+
+
+def _struct(policy):
+    return dict(max_depth=3, n_bins=16, min_data_in_leaf=0,
+                grow_policy=policy)
+
+
+def _data(seed=0):
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(N, F)).astype(np.float32)
+    return X, rng
+
+
+def _fit_shared(policy, algo, steps):
+    X, rng = _data()
+    pol, val = _opts(algo)
+    lr = JShared(F, O, _struct(policy), pol, val,
+                 params=dict(split_score_func="cosine"), device="cpu")
+    lr.reset()
+    lr.set_bias(np.array([0.1, -0.2, 0.5], np.float32))
+    for _ in range(steps):
+        lr.step(X, rng.normal(size=(N, O)).astype(np.float32))
+    return lr, X
+
+
+def _assert_same(a, b):
+    a = a.detach().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+    b = b.detach().numpy() if isinstance(b, torch.Tensor) else np.asarray(b)
+    np.testing.assert_allclose(a, b, **TOL)
+
+
+@pytest.mark.parametrize("policy,algo", [("greedy", "SGD"),
+                                         ("oblivious", "SGD"),
+                                         ("greedy", "Adam")])
+def test_shared_checkpoint_from_jax(tmp_path, policy, algo):
+    jl, X = _fit_shared(policy, algo, 5)
+    path = str(tmp_path / "shared")
+    jl.save(path)
+    tl = SharedActorCriticLearner.load(path, device="cpu")
+    assert tl.get_num_trees() == jl.get_num_trees() == 5
+    jp, jv = jl.predict(X)
+    tp, tv = tl.predict(X)
+    assert tp.shape == (N, O - 1) and tv.shape == (N,)
+    assert tp.requires_grad and tp.device.type == "cpu"
+    _assert_same(tp, jp)
+    _assert_same(tv, jv)
+    _assert_same(tl.predict_policy(X, start_idx=1, stop_idx=4),
+                 jl.predict_policy(X, start_idx=1, stop_idx=4))
+    _assert_same(tl.predict_critic(X), jl.predict_critic(X))
+    _assert_same(tl.predict_async(X), np.asarray(jl.predict_async(X)))
+    # one sample as a 1D row; a torch input
+    _assert_same(tl.predict(X[0])[0], jl.predict(X[0])[0])
+    _assert_same(tl.predict(torch.from_numpy(X))[1], jv)
+    assert tl.get_optimizers() == jl.get_optimizers()
+    np.testing.assert_array_equal(tl.get_bias(), jl.get_bias())
+
+
+def test_actor_critic_load_learner_shared_and_separate(tmp_path):
+    jl, X = _fit_shared("greedy", "SGD", 4)
+    jl.save(str(tmp_path / "sh"))
+    jm = JActorCritic.load_learner(str(tmp_path / "sh"), device="cpu")
+    tm = ActorCritic.load_learner(str(tmp_path / "sh"), device="cpu")
+    assert tm.shared_tree_struct
+    for a, b in zip(tm(X), jm(X)):
+        _assert_same(a, b)
+    _assert_same(tm.predict_policy(X), jm.predict_policy(X))
+    _assert_same(tm.predict_values(X), jm.predict_values(X))
+
+    pol, val = _opts("SGD")
+    js = JSeparate(F, O, _struct("oblivious"), pol, val, device="cpu")
+    js.reset()
+    rng = np.random.default_rng(1)
+    for _ in range(3):
+        js.step(X, [rng.normal(size=(N, O - 1)).astype(np.float32),
+                    rng.normal(size=(N, 1)).astype(np.float32)])
+    js.save(str(tmp_path / "sep"))
+    tsep = SeparateActorCriticLearner.load(str(tmp_path / "sep"),
+                                           device="cpu")
+    _assert_same(tsep.predict_policy(X), js.predict_policy(X))
+    _assert_same(tsep.predict_critic(X), js.predict_critic(X))
+    tm2 = ActorCritic.load_learner(str(tmp_path / "sep"), device="cpu")
+    assert not tm2.shared_tree_struct
+    for a, b in zip(tm2(X), js.predict(X)):
+        _assert_same(a, b)
+
+
+def test_port_checkpoint_loads_in_jax(tmp_path):
+    jl, X = _fit_shared("oblivious", "SGD", 4)
+    jl.save(str(tmp_path / "a"))
+    tl = SharedActorCriticLearner.load(str(tmp_path / "a"), device="cpu")
+    tl.save(str(tmp_path / "b"))
+    back = JShared.load(str(tmp_path / "b"), device="cpu")
+    for a, b in zip(back.predict(X), jl.predict(X)):
+        _assert_same(a, b)
+    # a model built by the port (no trees) crosses too
+    pol, val = _opts("SGD")
+    fresh = ActorCritic(_struct("greedy"), F, O, dict(pol), dict(val),
+                        bias=0.25, device="cpu")
+    fresh.save_learner(str(tmp_path / "c"))
+    jfresh = JActorCritic.load_learner(str(tmp_path / "c"), device="cpu")
+    for a, b in zip(fresh(X), jfresh(X)):
+        _assert_same(a, b)
+        _assert_same(a, np.full(a.shape, 0.25, np.float32))
+
+
+def test_predict_cache_incremental(tmp_path, monkeypatch):
+    """Repeated input served from the cache; a model with more trees tops
+    the cached prediction up one tree at a time (<= 8 new) or by one delta
+    sum (> 8 new), and equals the JAX learner's full predict each time."""
+    jl, X = _fit_shared("greedy", "SGD", 0)
+    rng = np.random.default_rng(2)
+    stages = []
+    for k in (3, 2, 10):
+        for _ in range(k):
+            jl.step(X, rng.normal(size=(N, O)).astype(np.float32))
+        path = str(tmp_path / f"s{jl.get_num_trees()}")
+        jl.save(path)
+        stages.append((path, copy.copy(jl).predict(X, tensor=False)))
+    full_calls = []
+    real_full = port_gbt._predict_full
+    monkeypatch.setattr(port_gbt, "_predict_full",
+                        lambda *a, **k: full_calls.append(1) or
+                        real_full(*a, **k))
+    tl = SharedActorCriticLearner.load(stages[0][0], device="cpu")
+    for i, (path, (jp, jv)) in enumerate(stages):
+        if i:
+            tl.ens = SharedActorCriticLearner.load(path, device="cpu").ens
+        tp, tv = tl.predict(X)
+        _assert_same(tp, jp)
+        _assert_same(tv, jv)
+        tp2, _ = tl.predict(X.copy())            # same bytes: served cached
+        assert torch.equal(tp, tp2)
+    assert len(full_calls) == 1
+    assert tl._pred_cache[1] == 15
+
+
+def test_ensemble_numpy_round_trip():
+    jl, _ = _fit_shared("greedy", "SGD", 2)
+    from gbrl_tpu.ensemble import ensemble_to_numpy as j_to_numpy
+    arrs = j_to_numpy(jl.ens)
+    ens = ensemble_from_numpy(arrs, device="cpu")
+    assert ens.n_trees.shape == () and ens.n_trees.dtype == torch.int32
+    back = ensemble_to_numpy(ens)
+    assert back.keys() == arrs.keys()
+    for k in arrs:
+        assert back[k].dtype == arrs[k].dtype, k
+        np.testing.assert_array_equal(back[k], arrs[k])
