@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
-"""Drive gbrl_tpu_torch's serving path on one NVIDIA GPU and check it.
+"""Drive gbrl_tpu_torch's serving and training paths on one NVIDIA GPU and
+check them.
 
     python3 chip_smoke.py [--seed 0]
 
-The serving path: load a saved shared actor-critic ensemble with
-``ActorCritic.load_learner(path, device="cuda")`` and answer predict
-requests, through the hand-written CUDA predict kernels K4 (greedy) and K5
-(oblivious) in ``gbrl_tpu_torch/csrc/predict.cu``.  Full width is the PPO
-shared actor-critic shape: F = 16 numeric features, O = 3 outputs (2 policy
-+ 1 value), depth 4, batches of N = 4096 observations, 1600 trees in a
-capacity of 2048.  Ensembles are synthetic, made with numpy from ``--seed``.
+Full width is the PPO shared actor-critic shape (bench.py:48-58): F = 16
+numeric features, O = 3 outputs (2 policy + 1 value), depth 4, batches of
+N = 4096 observations; serving reads 1600 trees in a capacity of 2048;
+training fits with 256 quantile bins (257 buckets) and the cosine score,
+greedy and oblivious.  Ensembles, observations and gradients are
+synthetic, made with numpy from ``--seed``.  The kernels are the CUDA C++
+ones in ``gbrl_tpu_torch/csrc``: K1 bucketize, K2 level histogram and K3
+level split score (``fit.cu``); K4 greedy and K5 oblivious leaf sums
+(``predict.cu``).
 
 Phases (any failure raises; the script then exits nonzero):
   1 device   the card's name, power limit and CUDA version;
@@ -25,7 +28,27 @@ Phases (any failure raises; the script then exits nonzero):
              same checkpoint loaded on the CPU; launch counts set to 0
              before and read after: K4 and K5 must have run;
   5 times    request latency (host clock, synchronized) and kernel times
-             (CUDA events) beside the plain versions and the bound.
+             (CUDA events) beside the plain versions and the bound;
+  6 fit parity  K1 bit-equal to its plain version (ties, duplicate
+             candidates, NaN rows); K2 within RTOL / ATOL of its plain
+             version at C = 4, 8, 16, 32 and the same bits on two launches;
+             K3's chosen indices equal to its plain version's and its
+             values within 1e-6 (greedy/oblivious x cosine/l2 x min_data,
+             a zero feature weight); build_tree at F = 300 / depth 4 and
+             F = 16 / depth 6 reaches K2 / K3;
+  7 training launch counts set to 0, then: a shared ActorCritic on the card,
+             greedy and then oblivious, takes 50 steps (K1 = 50, K2 = K3 =
+             200 each), every tree held against the CPU port's on the same
+             inputs (equal, or a near tie that is printed), the trained
+             ensemble's predictions (K4 / K5) against the CPU; distil; a
+             separate ActorCritic; GBTLearner.fit, 200 iterations, loss
+             within 1e-4 of the CPU port's; counts read after;
+  8 fit times  ActorCritic.step latency (p50 / p90 over 50 steps) given
+             host arrays, and given the card gradients a backward pass left
+             on the predicted leaves; fit trees per second; host
+             synchronisations in one boosting step and in both kinds of
+             step; K1-K3 times (CUDA events) beside their bounds, plain
+             versions and library yardsticks.
 
 Without a CUDA device it exits nonzero before printing any result.  It
 prints, before the last line, the nvidia-smi name/power-limit line and one
@@ -33,6 +56,7 @@ JSON line describing each kernel; the last line is the ok/device JSON.
 """
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -59,7 +83,26 @@ FLOPS_PER_INSTR = 2
 DISPATCH_SHAPES = ((300, 4), (16, 8))
 DISPATCH_CAPACITY, DISPATCH_TREES = 512, 400
 REPLACES = {"weighted_leaf_sum": "gbrl_tpu/ops/pallas_kernels.py:723",
-            "oblivious_leaf_sum": "gbrl_tpu/ops/pallas_kernels.py:851"}
+            "oblivious_leaf_sum": "gbrl_tpu/ops/pallas_kernels.py:851",
+            "bucketize": "gbrl_tpu/ops/pallas_kernels.py:46",
+            "level_histogram": "gbrl_tpu/ops/pallas_kernels.py:97",
+            "level_score": "gbrl_tpu/ops/pallas_kernels.py:215"}
+PREDICT_KERNELS = ("weighted_leaf_sum", "oblivious_leaf_sum")
+# the fit path at full width (bench.py:48-58): quantile candidates, 256 bins
+# (257 buckets), cosine score
+N_BINS = 256
+TRAIN_STEPS = 50        # ActorCritic.step calls per grow policy (phase 7)
+SEPARATE_STEPS = 10     # separate-mode steps held against the CPU
+FIT_ITERS = 200         # GBTLearner.fit iterations (phases 7 and 8)
+DISTIL_ITERS = 50
+FIT_LOSS_RTOL = 1e-4    # card vs CPU port: fit and distil losses
+# a tree that differs between the card and the CPU is allowed only where the
+# two chosen candidates' scores lie within this relative distance (the
+# histograms are summed in another order, so scores differ in the last ulps)
+TIE_RTOL = 1e-5
+STEP_WARMUP = 5
+# wide and deep numeric trees that build_tree must send to K2 / K3
+WIDE_TREES = ((300, 4), (16, 6))
 
 
 def smi_line() -> str:
@@ -152,9 +195,10 @@ def host_ms(fn, reps: int, warmup: int = 5) -> str:
     return f"p50 {p50:.4f} ms p90 {p90:.4f} ms (n={reps})"
 
 
-def profile_requests(fn, n: int = 20) -> None:
-    """One torch.profiler window over ``n`` requests: the device's busy
-    share of the window and the operators with the most device time."""
+def profile_requests(fn, n: int = 20, what: str = "request") -> None:
+    """One torch.profiler window over ``n`` calls of ``fn`` (requests, or
+    training steps): the device's busy share of the window and the
+    operators with the most device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -176,13 +220,13 @@ def profile_requests(fn, n: int = 20) -> None:
         print("  profile: no device time recorded (device busy share not "
               "measured)")
         return
-    print(f"  profile over {n} requests: wall {wall_us / n:.1f} us/request, "
-          f"device busy {busy / n:.1f} us/request "
+    print(f"  profile over {n} {what}s: wall {wall_us / n:.1f} us/{what}, "
+          f"device busy {busy / n:.1f} us/{what} "
           f"({100 * busy / wall_us:.1f}% of the window)")
     for e in avgs[:8]:
         if dev_us(e) > 0:
             print(f"    {e.key[:60]:60s} calls {e.count:5d} "
-                  f"device {dev_us(e) / n:8.2f} us/request")
+                  f"device {dev_us(e) / n:8.2f} us/{what}")
 
 
 def bound_ms(name: str, n: int, nt: int) -> tuple:
@@ -208,6 +252,516 @@ def check_close(what: str, got, want) -> float:
     assert err <= lim, f"{what}: max abs err {err} > {lim}"
     print(f"  {what}: max abs err {err:.3g} (limit {lim:.3g})")
     return err
+
+
+# ============================================================ fit path
+def fit_config(f: int = F, depth: int = DEPTH, policy: str = "greedy",
+               score: str = "cosine", min_data: int = 0):
+    from gbrl_tpu_torch.config import TreeConfig
+    return TreeConfig(input_dim=f, output_dim=O, n_num_features=f,
+                      max_depth=depth, n_bins=N_BINS, grow_policy=policy,
+                      split_score_func=score, min_data_in_leaf=min_data)
+
+
+def close_limit(want) -> float:
+    """|got - want| allowed: RTOL of the largest finite |want|, plus ATOL."""
+    import torch
+    fin = want[torch.isfinite(want)]
+    return RTOL * (fin.abs().max().item() if fin.numel() else 0.0) + ATOL
+
+
+def max_err(got, want) -> float:
+    """Largest |got - want| over finite entries; infinite entries must be
+    equal."""
+    import torch
+    fin = torch.isfinite(want)
+    assert torch.equal(fin, torch.isfinite(got)) and torch.equal(
+        got[~fin], want[~fin]), "infinite entries differ"
+    return (got[fin] - want[fin]).abs().max().item() if fin.any() else 0.0
+
+
+def route(X: np.ndarray, tree: dict, d: int, oblivious: bool) -> np.ndarray:
+    """Level-d node of every sample under the tree's levels above d."""
+    rel = np.zeros(X.shape[0], np.int64)
+    for lev in range(d):
+        p = (1 << lev) - 1 + rel
+        f = np.maximum(tree["feat"][p], 0)
+        go = tree["is_split"][p] & (X[np.arange(X.shape[0]), f]
+                                    > tree["thr"][p])
+        rel = 2 * rel + go
+    return rel
+
+
+def level_rows(cfg, X, g, tree, d):
+    """The level-d candidate scores of the CPU port's scorer (K3's plain
+    version), given the tree's levels above d: [rows, F * N_BINS] and the
+    parents."""
+    import torch
+    from gbrl_tpu_torch.ops import candidates as C
+    from gbrl_tpu_torch.ops import fit as FT
+    from gbrl_tpu_torch.ops import kernels as K
+    Xt, gt = torch.from_numpy(X), torch.from_numpy(g)
+    f = X.shape[1]
+    cand = C.numerical_candidates(cfg, Xt)
+    Xb = C.bucketize(Xt, cand)
+    n_nodes = 1 << d
+    rel = torch.from_numpy(route(X, tree, d, cfg.oblivious).astype(np.int32))
+    build = FT.standardize_l2(gt, torch.ones(len(X))) if cfg.score == "l2" \
+        else gt
+    nd = FT._node_expand(rel, build, torch.ones(len(X)), n_nodes)
+    hist = K.level_histogram_plain(Xb, nd, N_BINS + 1)
+    blocked = torch.zeros((n_nodes, f, N_BINS), dtype=torch.bool)
+    rows, _, _, parent, _ = K.level_score_rows(
+        hist, blocked, torch.ones(f), N_BINS, O, cfg.score,
+        cfg.min_data_in_leaf, cfg.oblivious, d == 0)
+    return rows.numpy(), parent.numpy(), cand.numpy()
+
+
+def compare_trees(label: str, cfg, X, g, card: dict, cpu: dict) -> int:
+    """Hold one tree fitted on the card against the CPU port's tree on the
+    same inputs: feat, is_split, thr and depth equal and leaf values within
+    RTOL / ATOL; or else a near tie at the first level that differs (every
+    differing node's two choices score within TIE_RTOL of each other, or of
+    not splitting), which is printed.  Returns 1 for a near tie."""
+    import torch
+    D = cfg.max_depth
+    for d in range(D):
+        sl = slice((1 << d) - 1, (1 << (d + 1)) - 1)
+        same = all(np.array_equal(card[k][sl], cpu[k][sl])
+                   for k in ("feat", "is_split", "thr"))
+        if not same:
+            break
+    else:
+        assert int(card["depth"]) == int(cpu["depth"]), f"{label}: depth"
+        got, want = (torch.from_numpy(np.asarray(t["leaf_values"]))
+                     for t in (card, cpu))
+        err = max_err(got, want)
+        assert err <= close_limit(want), f"{label}: leaf values err {err}"
+        return 0
+    rows, parent, cand = level_rows(cfg, X, g, cpu, d)
+
+    def score(tree, p, k):
+        r = 0 if cfg.oblivious else k
+        if not tree["is_split"][p]:
+            return 0.0 if not cfg.oblivious else float("-inf")
+        f = int(tree["feat"][p])
+        b = int(np.flatnonzero(cand[f] == tree["thr"][p])[0])
+        return float(rows[r, f * N_BINS + b])
+
+    for k in range(1 << d):
+        p = (1 << d) - 1 + k
+        if all(card[key][p] == cpu[key][p]
+               for key in ("feat", "is_split", "thr")):
+            continue
+        a, b = score(card, p, k), score(cpu, p, k)
+        base = max(abs(a), abs(b)) + (0.0 if cfg.oblivious else
+                                      abs(float(parent[k])))
+        assert np.isfinite(a) and np.isfinite(b) and \
+            abs(a - b) <= TIE_RTOL * base, (
+                f"{label}: level {d} node {k} differs beyond a near tie: "
+                f"card (f={card['feat'][p]}, thr={card['thr'][p]}, "
+                f"split={card['is_split'][p]}) score {a!r} vs cpu "
+                f"(f={cpu['feat'][p]}, thr={cpu['thr'][p]}, "
+                f"split={cpu['is_split'][p]}) score {b!r}")
+        print(f"  near tie {label}: level {d} node {k}: card f="
+              f"{card['feat'][p]} thr={card['thr'][p]!r} score {a!r}, cpu "
+              f"f={cpu['feat'][p]} thr={cpu['thr'][p]!r} score {b!r} "
+              f"(|diff| {abs(a - b):.3g}, limit {TIE_RTOL * base:.3g})")
+    return 1
+
+
+def tree_of(arrs: dict, t: int) -> dict:
+    return {k: arrs[k][t] for k in ("feat", "is_split", "thr",
+                                    "leaf_values")} | {"depth": arrs["depths"][t]}
+
+
+def phase_fit_parity(rng, dev):
+    """Phase 6: K1-K3 against their plain versions at full width, and wide
+    and deep numeric trees through build_tree.  Returns the kernels'
+    arguments for the timing phase and their max abs errors."""
+    import torch
+    from gbrl_tpu_torch.ops import candidates as C
+    from gbrl_tpu_torch.ops import fit as FT
+    from gbrl_tpu_torch.ops import kernels as K
+    print("[6 fit parity]", flush=True)
+    NB = N_BINS + 1
+    X = rng.normal(size=(N, F)).astype(np.float32)
+    cand = C.numerical_candidates(fit_config(), torch.from_numpy(X)).numpy()
+    cand[:, 100:104] = cand[:, 100:101]          # duplicate candidates
+    X[:256] = cand[:, 50][None, :]               # x equal to a candidate
+    X[256:300] = cand[:, 101][None, :]           # ... to a duplicated one
+    X[-4:] = np.nan                              # NaN counts 0
+    Xd = torch.from_numpy(X).to(dev)
+    cd = torch.from_numpy(np.ascontiguousarray(cand)).to(dev)
+    kb = K.bucketize_cuda(Xd, cd)
+    torch.cuda.synchronize()
+    assert torch.equal(kb, K.bucketize_plain(Xd, cd)), "K1 != plain"
+    assert torch.equal(kb.cpu(), K.bucketize_plain(torch.from_numpy(X),
+                                                   torch.from_numpy(cand)))
+    print(f"  K1 bucketize [{N} x {F}] x [{F} x {N_BINS}]: bit-equal to the "
+          f"plain version on the card and on the CPU (ties, duplicate "
+          f"candidates, NaN rows)")
+    args = {"bucketize": (Xd, cd), "level_histogram": [], "level_score": []}
+    errs = {"bucketize": 0.0, "level_histogram": 0.0, "level_score": 0.0}
+    g = torch.from_numpy(rng.normal(size=(N, O)).astype(np.float32)).to(dev)
+    w = torch.ones(N, device=dev)
+    fw = torch.from_numpy(rng.uniform(0.5, 1.5, F).astype(np.float32)).to(dev)
+    fw[5] = 0.0                                  # a zero feature weight
+    for d in range(DEPTH):
+        n_nodes = 1 << d
+        rel = torch.from_numpy(rng.integers(0, n_nodes, N).astype(np.int32)
+                               ).to(dev)
+        nd = FT._node_expand(rel, g, w, n_nodes)
+        h1 = K.level_histogram_cuda(kb, nd, NB)
+        h2 = K.level_histogram_cuda(kb, nd, NB)
+        torch.cuda.synchronize()
+        assert torch.equal(h1, h2), f"K2 not deterministic at C={nd.shape[1]}"
+        # the plain version sums in another order (index_add_): tolerance
+        want = K.level_histogram_plain(kb, nd, NB)
+        err = max_err(h1, want)
+        assert err <= close_limit(want), f"K2 C={nd.shape[1]}: err {err}"
+        errs["level_histogram"] = max(errs["level_histogram"], err)
+        print(f"  K2 level {d} C={nd.shape[1]}: same bits on two launches; "
+              f"max abs err vs plain {err:.3g} (limit "
+              f"{close_limit(want):.3g})")
+        args["level_histogram"].append((kb, nd, NB))
+        blocked = torch.from_numpy(rng.random((n_nodes, F, N_BINS))
+                                   < (0.05 if d else 0.0)).to(dev)
+        for obl in (False, True):
+            for score in ("cosine", "l2"):
+                for md in (0, 40):
+                    a = (h1, blocked, fw, N_BINS, O, score, md, obl, d == 0)
+                    got = K.level_score_cuda(*a)
+                    want = K.level_score_plain(*a)
+                    torch.cuda.synchronize()
+                    assert torch.equal(got[0], want[0]), (
+                        f"K3 level {d} obl={obl} {score} md={md}: index "
+                        f"{got[0].tolist()} vs {want[0].tolist()}")
+                    err = max(max_err(x, y) for x, y in zip(got[1:],
+                                                            want[1:]))
+                    assert err <= 1e-6, f"K3 values err {err}"
+                    errs["level_score"] = max(errs["level_score"], err)
+        print(f"  K3 level {d}: indices equal to the plain version, values "
+              f"max abs err {errs['level_score']:.3g} (greedy/oblivious x "
+              f"cosine/l2 x min_data 0/40, a zero feature weight)")
+        args["level_score"].append((h1, torch.zeros_like(blocked), fw.clone()
+                                    .fill_(1.0), N_BINS, O, "cosine", 0,
+                                    False, d == 0))
+    for f, depth in WIDE_TREES:
+        cfg = fit_config(f, depth)
+        Xw = rng.normal(size=(N, f)).astype(np.float32)
+        gw = rng.normal(size=(N, O)).astype(np.float32)
+        trees = []
+        for device in (dev, torch.device("cpu")):
+            Xt, gt = (torch.from_numpy(a).to(device) for a in (Xw, gw))
+            before = dict(K.launch_counts)
+            cand_w = C.numerical_candidates(cfg, Xt)
+            tree = FT.build_tree(cfg, C.bucketize(Xt, cand_w), cand_w, gt, gt,
+                                 torch.ones(N, device=device),
+                                 torch.ones(f, device=device))
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+                for name, n in (("bucketize", 1), ("level_histogram", depth),
+                                ("level_score", depth)):
+                    assert K.launch_counts[name] == before[name] + n, \
+                        f"F={f} depth={depth}: {name} not launched {n}x"
+            trees.append({k: v.cpu().numpy() for k, v in tree.items()})
+        ties = compare_trees(f"wide tree F={f} depth={depth}", cfg, Xw, gw,
+                             *trees)
+        print(f"  build_tree F={f} depth={depth}: K1 once, K2/K3 {depth}x on "
+              f"the card; tree equal to the CPU port's"
+              + (" up to a near tie" if ties else ""))
+    return args, errs
+
+
+def phase_training(rng, dev) -> dict:
+    """Phase 7: ActorCritic.step (shared: greedy and oblivious; separate),
+    GBTLearner.fit and distil on the card, each held against the same calls
+    on a CPU copy of the port.  Returns the launch counts of the phase."""
+    import torch
+    from gbrl_tpu_torch import ActorCritic, GBTLearner
+    from gbrl_tpu_torch.ensemble import ensemble_to_numpy
+    from gbrl_tpu_torch.ops import kernels as K
+    print("[7 training]", flush=True)
+    pol = dict(algo="SGD", lr=0.05, start_idx=0, stop_idx=O - 1)
+    val = dict(algo="SGD", lr="lin_0.1", T=2000, start_idx=O - 1, stop_idx=O)
+    K.reset_launch_counts()
+    ties = 0
+    for policy in ("greedy", "oblivious"):
+        struct = dict(max_depth=DEPTH, n_bins=N_BINS, grow_policy=policy)
+        models = [ActorCritic(struct, F, O, dict(pol), dict(val),
+                              device=device) for device in ("cuda", "cpu")]
+        seed = int(rng.integers(1 << 31))
+        batches = []
+        before = dict(K.launch_counts)
+        for m in models:
+            r = np.random.default_rng(seed)
+            batches = []
+            for _ in range(TRAIN_STEPS):
+                Xs = r.normal(size=(N, F)).astype(np.float32)
+                pg = r.normal(size=(N, O - 1)).astype(np.float32)
+                vg = r.normal(size=(N,)).astype(np.float32)
+                m.step(Xs, pg, vg)
+                batches.append((Xs, np.concatenate([pg, vg[:, None]], 1)))
+            if m is models[0]:
+                torch.cuda.synchronize()
+                got = {k: K.launch_counts[k] - before[k] for k in before}
+                assert (got["bucketize"], got["level_histogram"],
+                        got["level_score"]) == (
+                    TRAIN_STEPS, 4 * TRAIN_STEPS, 4 * TRAIN_STEPS), got
+        arrs = [ensemble_to_numpy(m.learner.ens) for m in models]
+        assert int(arrs[0]["n_trees"]) == int(arrs[1]["n_trees"]) == \
+            TRAIN_STEPS
+        cfg = models[1].learner.cfg
+        for t, (Xs, g) in enumerate(batches):
+            ties += compare_trees(f"{policy} step {t}", cfg, Xs, g,
+                                  tree_of(arrs[0], t), tree_of(arrs[1], t))
+        print(f"  shared {policy}: {TRAIN_STEPS} steps, launches K1 "
+              f"{got['bucketize']}, K2 {got['level_histogram']}, K3 "
+              f"{got['level_score']}; trees equal to the CPU port's "
+              f"(near ties so far: {ties})")
+        Xe = rng.normal(size=(N, F)).astype(np.float32)
+        k_before = dict(K.launch_counts)
+        out = [m(Xe, requires_grad=False) for m in models]
+        torch.cuda.synchronize()
+        key = "oblivious_leaf_sum" if policy == "oblivious" else \
+            "weighted_leaf_sum"
+        assert K.launch_counts[key] > k_before[key], f"{key} not launched"
+        for a, b, what in zip(out[0], out[1], ("policy", "value")):
+            check_close(f"trained {policy} {what} (K4/K5 vs CPU)", a,
+                        b.to(dev))
+        if policy == "greedy":
+            # distil the trained shared learner into a fresh student
+            p, v = (x.cpu().numpy() for x in out[1])
+            params = dict(max_depth=DEPTH, distil_budget=DISTIL_ITERS)
+            losses = [m.learner.distil(Xe, p, v, params)[0] for m in models]
+            assert abs(losses[0] - losses[1]) <= FIT_LOSS_RTOL * abs(
+                losses[1]), f"distil loss {losses}"
+            print(f"  distil ({DISTIL_ITERS} trees): loss card {losses[0]!r}"
+                  f" cpu {losses[1]!r}")
+    # separate actor and critic ensembles
+    struct = dict(max_depth=DEPTH, n_bins=N_BINS)
+    models = [ActorCritic(struct, F, O, dict(pol), dict(val),
+                          shared_tree_struct=False, device=device)
+              for device in ("cuda", "cpu")]
+    seed = int(rng.integers(1 << 31))
+    for m in models:
+        r = np.random.default_rng(seed)
+        for _ in range(SEPARATE_STEPS):
+            m.step(r.normal(size=(N, F)).astype(np.float32),
+                   r.normal(size=(N, O - 1)).astype(np.float32),
+                   r.normal(size=(N,)).astype(np.float32))
+        Xs = r.normal(size=(N, F)).astype(np.float32)
+        m.actor_step(Xs, r.normal(size=(N, O - 1)).astype(np.float32))
+        m.critic_step(Xs, r.normal(size=(N,)).astype(np.float32))
+    Xe = rng.normal(size=(N, F)).astype(np.float32)
+    for a, b, what in zip(models[0](Xe), models[1](Xe), ("policy", "value")):
+        check_close(f"separate {what} after {SEPARATE_STEPS} steps + actor/"
+                    f"critic step", a, b.to(dev))
+    # supervised fit
+    X = rng.normal(size=(N, F)).astype(np.float32)
+    y = np.stack([np.sin(X[:, 0]) + X[:, 1] * X[:, 2], X[:, 3] ** 2,
+                  (X[:, 4] > 0) - 0.5], 1).astype(np.float32)
+    losses = []
+    for device in ("cuda", "cpu"):
+        lr = GBTLearner(F, O, dict(max_depth=DEPTH, n_bins=N_BINS),
+                        dict(algo="SGD", init_lr=0.1, start_idx=0,
+                             stop_idx=O), device=device)
+        lr.reset()
+        losses.append(lr.fit(X, y, FIT_ITERS))
+    assert abs(losses[0] - losses[1]) <= FIT_LOSS_RTOL * abs(losses[1]), \
+        f"fit loss card {losses[0]} vs cpu {losses[1]}"
+    print(f"  GBTLearner.fit N={N} x {FIT_ITERS} iterations: loss card "
+          f"{losses[0]!r} cpu {losses[1]!r}")
+    torch.cuda.synchronize()
+    launches = dict(K.launch_counts)
+    print(f"  launch counts over the training phase: {launches}; near ties "
+          f"{ties} of {2 * TRAIN_STEPS} trees")
+    for name in ("bucketize", "level_histogram", "level_score"):
+        assert launches[name] > 0, f"{name} was not launched while training"
+    return launches
+
+
+def fit_bounds(name: str, a) -> tuple:
+    """(bytes, operations) one call must at least move and do: each input
+    read once, each output written once; FLOPS_PER_INSTR per compare, add,
+    multiply, division or square root, counted for this call's data."""
+    if name == "bucketize":
+        # a search of an ascending grid needs ceil(log2(B + 1)) compares
+        X, cand = a
+        n, f = X.shape
+        b = cand.shape[1]
+        compares = n * f * math.ceil(math.log2(b + 1))
+        return 4 * (2 * n * f + f * b), compares * FLOPS_PER_INSTR
+    if name == "level_histogram":
+        Xb, nd, nb = a
+        n, f = Xb.shape
+        c = nd.shape[1]
+        nonzero = int((nd != 0).sum().item())     # the adds this data needs
+        return 4 * (n * f + n * c + f * c * nb), nonzero * f * FLOPS_PER_INSTR
+    hist, blocked, fw = a[:3]
+    f, c, nb = hist.shape
+    n_nodes, _, b = blocked.shape
+    per_cand = 5 * O + 8          # squares, sums, 2 divisions, sqrt, masks
+    ops = f * c * nb + n_nodes * f * b * per_cand
+    nbytes = 4 * f * c * nb + n_nodes * f * b + 4 * f + 4 * n_nodes * (O + 4)
+    return nbytes, ops * FLOPS_PER_INSTR
+
+
+def sync_count(fn) -> int:
+    """Host synchronisations PyTorch reports while ``fn`` runs."""
+    import warnings
+    import torch
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    # PyTorch's own notice that the mode "does not yet detect all
+    # synchronizing operations" is not a synchronisation
+    return sum("called a synchronizing CUDA operation" in str(w.message)
+               for w in caught)
+
+
+def phase_fit_times(rng, dev, args: dict, errs: dict, launches: dict):
+    """Phase 8: training latency, fit throughput, host syncs per boosting
+    step, and K1-K3 times beside their bounds, plain versions and library
+    yardsticks.  Returns the kernels' JSON entries."""
+    import torch
+    from gbrl_tpu_torch import ActorCritic, GBTLearner
+    from gbrl_tpu_torch.ensemble import init_ensemble
+    from gbrl_tpu_torch.ops import kernels as K
+    from gbrl_tpu_torch.ops.boosting import boost_step
+    print("[8 fit times]", flush=True)
+    pol = dict(algo="SGD", lr=0.05, start_idx=0, stop_idx=O - 1)
+    val = dict(algo="SGD", lr="lin_0.1", T=2000, start_idx=O - 1, stop_idx=O)
+    data = [(rng.normal(size=(N, F)).astype(np.float32),
+             rng.normal(size=(N, O - 1)).astype(np.float32),
+             rng.normal(size=(N,)).astype(np.float32))
+            for _ in range(STEP_WARMUP + TRAIN_STEPS)]
+    # the PPO update as a user writes it: predict, a loss, backward, then
+    # step() reads the gradients (on the card) from the leaf tensors
+    card_grads = [(obs, torch.from_numpy(gp).to(dev) / N,
+                   torch.from_numpy(gv).to(dev) / N) for obs, gp, gv in data]
+
+    def new_model(policy: str = "greedy"):
+        return ActorCritic(dict(max_depth=DEPTH, n_bins=N_BINS,
+                                grow_policy=policy), F, O, dict(pol),
+                           dict(val), device="cuda")
+
+    def backward(model, obs, gp, gv):
+        p, v = model(obs)
+        ((p * gp).sum() + (v * gv.reshape(v.shape)).sum()).backward()
+
+    for policy in ("greedy", "oblivious"):
+        # the two kinds of step alternate, so both see the same host load
+        model, card_model = new_model(policy), new_model(policy)
+        times = {"host arrays": [], "card gradients": []}
+        for i, (batch, cb) in enumerate(zip(data, card_grads)):
+            backward(card_model, *cb)
+            for grads, run in (("host arrays", lambda: model.step(*batch)),
+                               ("card gradients", card_model.step)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                if i >= STEP_WARMUP:
+                    times[grads].append((time.perf_counter() - t0) * 1e3)
+        for grads, ts in times.items():
+            p50, p90 = np.percentile(ts, [50, 90])
+            print(f"  ActorCritic.step {policy} [N={N} x F={F}, {grads}]: "
+                  f"p50 {p50:.4f} ms p90 {p90:.4f} ms (n={TRAIN_STEPS})")
+        if policy == "greedy":
+            it = iter(data * 2)
+            profile_requests(lambda: model.step(*next(it)), n=10,
+                             what="step")
+    X = rng.normal(size=(N, F)).astype(np.float32)
+    y = rng.normal(size=(N, O)).astype(np.float32)
+    lr = GBTLearner(F, O, dict(max_depth=DEPTH, n_bins=N_BINS),
+                    dict(algo="SGD", init_lr=0.1, start_idx=0, stop_idx=O),
+                    device="cuda")
+    lr.reset()
+    lr.fit(X, y, 5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lr.fit(X, y, FIT_ITERS)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    print(f"  GBTLearner.fit N={N}: {FIT_ITERS / secs:.1f} trees/s "
+          f"({secs * 1e3:.1f} ms for {FIT_ITERS} iterations)")
+    # host synchronisations in one boosting step
+    cfg = fit_config()
+    ens = init_ensemble(cfg, 8, device="cuda")
+    Xd, gd = (torch.from_numpy(a).to(dev) for a in (X, y))
+    fw = torch.ones(F, device=dev)
+    boost_step(cfg, ens, Xd, gd, fw)
+    n_sync = sync_count(lambda: boost_step(cfg, ens, Xd, gd, fw))
+    model = new_model()
+    model.step(*data[0])
+    n_sync_step = sync_count(lambda: model.step(*data[1]))
+    backward(model, *card_grads[2])
+    n_sync_card = sync_count(model.step)
+    print(f"  host synchronisations: ops.boosting.boost_step (tensors on the "
+          f"card) {n_sync}; ActorCritic.step (host arrays) {n_sync_step}; "
+          f"ActorCritic.step (card gradients) {n_sync_card}")
+    # kernel times at the shapes of the main path
+    kernels = []
+    Xk, ck = args["bucketize"]
+    Xk_t = Xk.t().contiguous()                    # searchsorted's layout
+    plans = [("bucketize", [args["bucketize"]], K.bucketize_cuda,
+              K.bucketize_plain),
+             ("level_histogram", args["level_histogram"],
+              K.level_histogram_cuda, K.level_histogram_plain),
+             ("level_score", args["level_score"], K.level_score_cuda,
+              K.level_score_plain)]
+    for name, calls, fast, plain in plans:
+        tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, t_bytes=0.0, t_ops=0.0,
+                   library_ms=0.0 if name != "level_score" else None)
+        for lvl, a in enumerate(calls):
+            ms = cuda_ms(lambda: fast(*a), KERNEL_REPS)
+            pms = cuda_ms(lambda: plain(*a), KERNEL_REPS if name !=
+                          "level_score" else 5)
+            nbytes, ops = fit_bounds(name, a)
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+            bms = max(t_bytes, t_ops) * 1e3
+            lib = None
+            if name == "bucketize":
+                lib = cuda_ms(lambda: torch.searchsorted(ck, Xk_t),
+                              KERNEL_REPS)
+            elif name == "level_histogram":
+                Xb, nd, nb = a
+                f_, c_ = Xb.shape[1], nd.shape[1]
+                ids = (torch.arange(f_, device=dev)[None, :] * nb
+                       + Xb.long()).reshape(-1)
+                src = nd[:, None, :].expand(N, f_, c_).reshape(N * f_, c_)
+                out = torch.zeros((f_ * nb, c_), device=dev)
+                lib = cuda_ms(lambda: out.index_add_(0, ids, src),
+                              KERNEL_REPS)
+            where = f"level {lvl} " if name != "bucketize" else ""
+            print(f"  {name} {where}: {ms:.5f} ms | plain {pms:.5f} ms | "
+                  f"library {'none' if lib is None else f'{lib:.5f} ms'} | "
+                  f"bound {bms:.6f} ms "
+                  f"({'bytes' if t_bytes >= t_ops else 'operations'})")
+            tot["ms"] += ms
+            tot["plain_ms"] += pms
+            tot["bound_ms"] += bms
+            tot["t_bytes"] += t_bytes
+            tot["t_ops"] += t_ops
+            if lib is not None:
+                tot["library_ms"] += lib
+        kernels.append(dict(
+            name=name, route="cuda", source="gbrl_tpu_torch/csrc/fit.cu",
+            replaces=REPLACES[name], launches=launches[name],
+            max_abs_err=errs[name], ms=tot["ms"], plain_ms=tot["plain_ms"],
+            bound_ms=tot["bound_ms"],
+            bound_by="bytes" if tot["t_bytes"] >= tot["t_ops"]
+            else "operations", library_ms=tot["library_ms"]))
+    print("  (level_histogram and level_score: sums over one tree's "
+          f"{DEPTH} levels)")
+    return kernels
 
 
 def main() -> int:
@@ -362,8 +916,8 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = dict(K.launch_counts)
     print(f"  launch counts over the serving phase: {launches}")
-    for name, count in launches.items():
-        assert count > 0, f"{name} was not launched on the serving path"
+    for name in PREDICT_KERNELS:
+        assert launches[name] > 0, f"{name} was not launched on the serving path"
 
     # ----------------------------------------------------------- 5 times
     print("[5 times]", flush=True)
@@ -394,6 +948,10 @@ def main() -> int:
             replaces=REPLACES[name], launches=launches[name],
             max_abs_err=max_err[name], ms=ms, plain_ms=plain_ms,
             bound_ms=bms, bound_by=bound_by, library_ms=None))
+
+    fit_args, fit_err = phase_fit_parity(rng, dev)
+    fit_launches = phase_training(rng, dev)
+    kernels += phase_fit_times(rng, dev, fit_args, fit_err, fit_launches)
 
     print(smi)
     print(json.dumps({"kernels": kernels}))

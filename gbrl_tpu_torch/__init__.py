@@ -4,9 +4,10 @@ PyTorch, with hand-written CUDA kernels for NVIDIA Hopper (H100).
 A port of ``gbrl_tpu`` (the JAX/Pallas package, kept as the reference).
 It imports ``torch`` and ``numpy`` only, never ``jax`` or ``gbrl_tpu``.
 Every entry point takes ``device`` ("cuda" by default); asking for "cuda"
-without a card raises.  This first slice serves predictions from saved
-ensembles (shared/separate actor-critic) through the K4/K5 predict kernels
-(``ops/kernels.py``, ``csrc/predict.cu``); fitting comes with later slices
+without a card raises.  It fits trees (``step``, ``fit``, ``distil``)
+through the K1-K3 fit kernels (``csrc/fit.cu``) and serves predictions
+through the K4/K5 predict kernels (``csrc/predict.cu``), all wrapped in
+``ops/kernels.py``; the RL loops, SHAP and export come with later slices
 (ROADMAP.md).
 """
 import torch as _torch
@@ -14,7 +15,8 @@ import torch as _torch
 from .config import TreeConfig, APPROVED_OPTIMIZERS, VALID_OPTIMIZER_ARGS  # noqa: F401
 from .ensemble import Ensemble, init_ensemble  # noqa: F401
 from .optimizers import OptimizerSpec  # noqa: F401
-from .models import ActorCritic  # noqa: F401
+from .models import (ActorCritic, ContinuousCritic, DiscreteCritic,  # noqa: F401
+                     GaussianActor, GBTModel, ParametricActor)
 from .learners import (GBTLearner, MultiGBTLearner,  # noqa: F401
                        SharedActorCriticLearner, SeparateActorCriticLearner)
 

@@ -11,8 +11,9 @@ from __future__ import annotations
 
 from typing import Dict, Optional
 
-from ..common.utils import ensure_leaf_output
-from .base import not_ported
+import numpy as np
+
+from ..common.utils import ensure_leaf_output, to_numpy
 from .gbt_learner import GBTLearner
 from .multi_gbt_learner import MultiGBTLearner
 
@@ -26,6 +27,14 @@ class SharedActorCriticLearner(GBTLearner):
                          [policy_optimizer, value_optimizer], params,
                          verbose, device, policy_dim=output_dim - 1,
                          name=name)
+
+    def distil(self, obs, policy_targets, value_targets, params: Dict,
+               verbose: int = 0):
+        pol = to_numpy(policy_targets)
+        targets = np.concatenate(
+            [pol.reshape(len(pol), -1), to_numpy(value_targets).reshape(-1, 1)],
+            axis=1)
+        return super().distil(obs, targets, params, verbose)
 
     def predict(self, inputs, requires_grad: bool = True,
                 start_idx: Optional[int] = None,
@@ -93,10 +102,10 @@ class SeparateActorCriticLearner(MultiGBTLearner):
         self.output_dim = output_dim
 
     def step_actor(self, inputs, grads) -> None:
-        raise not_ported("step_actor", "slice 2 (the fit path)")
+        self.step(inputs, grads, model_idx=0)
 
     def step_critic(self, inputs, grads) -> None:
-        raise not_ported("step_critic", "slice 2 (the fit path)")
+        self.step(inputs, grads, model_idx=1)
 
     def predict_policy(self, obs, requires_grad: bool = True,
                        start_idx: int = 0, stop_idx: Optional[int] = None,

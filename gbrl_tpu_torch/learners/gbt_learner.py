@@ -1,11 +1,12 @@
 """GBTLearner: single-ensemble learner (counterpart of
 ``gbrl_tpu/learners/gbt_learner.py``; reference gbrl/learners/gbt_learner.py).
 
-Owns one ``Ensemble`` of torch tensors on ``device`` and serves
-predictions from it.  Checkpoints are the JAX package's ``.gbrl_model``
-format (npz with a JSON ``__meta__``), so a checkpoint crosses between the
-two packages in both directions.  Fitting (``step``, ``fit``, ``distil``),
-SHAP and export come with later slices (ROADMAP.md) and raise
+Owns one ``Ensemble`` of torch tensors on ``device``, fits trees into it
+(``step``: one boosting iteration on per-sample gradients; ``fit``: the
+supervised loop; ``distil``) and serves predictions from it.  Checkpoints
+are the JAX package's ``.gbrl_model`` format (npz with a JSON ``__meta__``),
+so a checkpoint crosses between the two packages in both directions.  SHAP
+and export come with later slices (ROADMAP.md) and raise
 ``NotImplementedError`` here.
 """
 from __future__ import annotations
@@ -17,12 +18,12 @@ from typing import Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from ..common.utils import (CategoryVocab, NumericalData, ensure_leaf_output,
-                            get_index_mapping, is_torch, preprocess_features,
-                            to_numpy)
+from ..common.utils import (CategoryVocab, NumericalData, ensure_2d,
+                            ensure_leaf_output, get_index_mapping, is_torch,
+                            preprocess_features, to_numpy)
 from ..ensemble import (FIELDS, Ensemble, ensemble_from_numpy,
-                        ensemble_to_numpy, init_ensemble)
-from ..ops.boosting import predict_sgd
+                        ensemble_to_numpy, ensure_capacity, init_ensemble)
+from ..ops.boosting import boost_step, fit_loop, predict_sgd
 from ..ops.predict import single_tree_leaf_values, weighted_leaf_sum
 from ..optimizers import OptimizerSpec, adam_delta, scheduler_lr, sgd_coeff
 from .base import BaseLearner, not_ported
@@ -138,6 +139,35 @@ class GBTLearner(BaseLearner):
             self.vocab = CategoryVocab(n_cat)
         self._mapping_set = True
 
+    def _internal_feature_weights(self) -> torch.Tensor:
+        """Per-internal-feature weights in [num block | cat block] order,
+        mapped through the original column positions (both grow
+        policies), on the learner's device."""
+        order = np.concatenate([np.where(self.num_mask)[0],
+                                np.where(~self.num_mask)[0]])
+        fw = np.ascontiguousarray(self.feature_weights[order], np.float32)
+        return torch.from_numpy(fw).to(self.torch_device)
+
+    def _n_codes(self) -> int:
+        """Categorical code-space bound, padded to a power of two (>= 8)."""
+        if self.vocab is None:
+            return 0
+        mx = max((len(m) for m in self.vocab.maps), default=0)
+        n = 8
+        while n < mx:
+            n *= 2
+        return n
+
+    def _grads_tensor(self, grads, n: int) -> torch.Tensor:
+        """Gradients (an array or tensor, or a tuple of them concatenated
+        along the columns) -> [n, O] f32 on the learner's device."""
+        parts = grads if isinstance(grads, tuple) else (grads,)
+        ts = [g.detach().to(self.torch_device, torch.float32).reshape(n, -1)
+              if is_torch(g) else
+              torch.from_numpy(to_numpy(g).reshape(n, -1)).to(self.torch_device)
+              for g in parts]
+        return torch.cat(ts, dim=1) if len(ts) > 1 else ts[0].contiguous()
+
     def _infer_mapping_from(self, inputs) -> None:
         if self._mapping_set:
             return
@@ -164,13 +194,9 @@ class GBTLearner(BaseLearner):
         return inputs
 
     def _prepare(self, inputs, grow_vocab: bool):
-        """inputs -> (Xn [N, Fn], Xc codes [N, Fc] | None, cache key | None),
-        tensors on the learner's device.
-
-        The predict-cache key is an exact blake2b hash of the host bytes.
-        Only host inputs (numpy arrays, CPU tensors) are keyed: hashing a
-        CUDA tensor would copy it to the host, so a CUDA input gets no key
-        and is always predicted in full (the RL loops pass host arrays)."""
+        """inputs -> (Xn [N, Fn], Xc codes [N, Fc] | None, host arrays |
+        None): tensors on the learner's device, and the host arrays they
+        were copied from (None for a CUDA input, which is not copied)."""
         inputs = self._disambiguate_1d(inputs)
         self._infer_mapping_from(inputs)
         if is_torch(inputs) and inputs.device.type != "cpu":
@@ -181,20 +207,109 @@ class GBTLearner(BaseLearner):
             num = np.zeros((cat.shape[0], 0), dtype=np.float32)
         Xn = torch.from_numpy(num).to(self.torch_device)
         if cat is None or cat.shape[1] == 0:
-            return Xn, None, _cache_key((num,))
+            return Xn, None, (num,)
         codes = self.vocab.encode(cat, grow=grow_vocab)
         return (Xn, torch.from_numpy(codes).to(self.torch_device),
-                _cache_key((num, codes)))
+                (num, codes))
 
     # ------------------------------------------------------------------ train
     def step(self, inputs: NumericalData, grads: NumericalData) -> None:
-        raise not_ported("GBTLearner.step", "slice 2 (the fit path)")
+        """One boosting iteration on per-sample gradients (reference:
+        gbt_learner.py:105-148 -> GBRL::step -> Fitter::step_cpu)."""
+        assert self.ens is not None, "call reset() first"
+        Xn, Xc, _ = self._prepare(inputs, grow_vocab=True)
+        n = Xn.shape[0] if Xn.shape[1] > 0 else Xc.shape[0]
+        g = self._grads_tensor(grads, n)
+        assert g.shape[1] == self.output_dim, \
+            f"grads dim {g.shape[1]} != output_dim {self.output_dim}"
+        self.ens = ensure_capacity(self.ens, self.get_num_trees() + 1)
+        fw = self._internal_feature_weights()
+        n_num = self.cfg.n_num_features
+        self.ens = boost_step(self.cfg, self.ens, Xn, g, fw[:n_num], Xc,
+                              fw[n_num:], self._n_codes())
+        self.total_iterations += 1
 
-    def fit(self, *a, **k) -> float:
-        raise not_ported("GBTLearner.fit", "slice 2 (the fit path)")
+    def fit(self, features: NumericalData, targets: NumericalData,
+            iterations: int, shuffle: bool = True,
+            loss_type: str = "MultiRMSE", seed: int = 42) -> float:
+        """Supervised multi-iteration fit (reference: gbt_learner.py:150-183,
+        GBRL::fit gbrl.cpp:983-1104: SGD only, host-side shuffle,
+        bias = mean(targets), cycling mini-batches)."""
+        assert self.ens is not None, "call reset() first"
+        assert loss_type == "MultiRMSE", "only MultiRMSE is implemented"
+        for s in self.specs:
+            if s.algo == "Adam":
+                raise RuntimeError(
+                    "Adam optimizer not supported in fit function. Use SGD")
+        num, cat = preprocess_features(features)
+        self._infer_mapping_from(features)
+        y = ensure_2d(to_numpy(targets))
+        codes = None
+        if cat is not None:
+            codes = self.vocab.encode(cat, grow=True)
+        X = num if num is not None else np.zeros((y.shape[0], 0), np.float32)
+        N = X.shape[0]
+        if shuffle:
+            perm = np.random.default_rng(seed).permutation(N)
+            X, y = X[perm], y[perm]
+            if codes is not None:
+                codes = codes[perm]
+        bs = min(self.cfg.batch_size, N)
+        n_pad = ((N + bs - 1) // bs) * bs
+        Xp = np.zeros((n_pad, X.shape[1]), dtype=np.float32)
+        yp = np.zeros((n_pad, y.shape[1]), dtype=np.float32)
+        Xp[:N], yp[:N] = X, y
+        dev = self.torch_device
+        Xcp = None
+        if codes is not None:
+            # padded rows reuse row 0's codes; masked out of counts and loss
+            Xcp = np.zeros((n_pad, codes.shape[1]), dtype=np.int32)
+            Xcp[:N] = codes
+            Xcp[N:] = codes[0] if N > 0 else 0
+            Xcp = torch.from_numpy(Xcp).to(dev)
+        self.ens = ensure_capacity(self.ens, self.get_num_trees() + iterations)
+        self.ens = self.ens.replace(bias=torch.from_numpy(
+            np.ascontiguousarray(y.mean(axis=0), np.float32)).to(dev))
+        self._pred_cache = None
+        self._bias_version = getattr(self, "_bias_version", 0) + 1
+        fw = self._internal_feature_weights()
+        n_num = self.cfg.n_num_features
+        self.ens, loss, per_iter = fit_loop(
+            self.cfg, int(iterations), self.ens, torch.from_numpy(Xp).to(dev),
+            torch.from_numpy(yp).to(dev), N, self.specs, fw[:n_num], Xcp,
+            fw[n_num:], self._n_codes())
+        self._last_fit_losses = per_iter.cpu().numpy()
+        if self.verbose > 0:
+            # per-iteration batch loss (fitter.cpp:232-234)
+            for i, l in enumerate(self._last_fit_losses):
+                print(f"Boosting iteration: {i + 1} - MultiRMSE Loss: {l}")
+        self.total_iterations += int(iterations)
+        return float(loss)
 
-    def distil(self, *a, **k):
-        raise not_ported("GBTLearner.distil", "slice 2 (the fit path)")
+    def distil(self, obs, targets, params: Dict, verbose: int = 0):
+        """Train a compact student on this ensemble's outputs and swap it in
+        (reference: gbt_learner.py:502-551)."""
+        student_struct = dict(self.tree_struct)
+        student_struct["max_depth"] = params.get(
+            "max_depth", student_struct.get("max_depth", 4))
+        lr = params.get("lr", 1.0)
+        student = GBTLearner(
+            self.input_dim, self.output_dim, student_struct,
+            [dict(algo="SGD", init_lr=lr, start_idx=0,
+                  stop_idx=self.output_dim, scheduler="Const")],
+            {k: v for k, v in self.params.items() if k != "feature_weights"},
+            verbose, self.device)
+        student.reset()
+        loss = student.fit(obs, targets,
+                           params.get("distil_budget", 1000), shuffle=False)
+        old_bv = getattr(self, "_bias_version", 0)
+        self.__dict__.update(student.__dict__)
+        self._pred_cache = None
+        # the ensemble changed wholesale: the bias version moves past
+        # anything a mirror has seen
+        self._bias_version = max(old_bv,
+                                 getattr(student, "_bias_version", 0)) + 1
+        return loss, params
 
     # -------------------------------------------------------------- inference
     def _predict_raw(self, inputs, start_idx: int = 0,
@@ -205,12 +320,18 @@ class GBTLearner(BaseLearner):
         incrementally: only trees added since the cached call are evaluated
         (leaf values are immutable once fit, so cache + delta reproduces a
         full predict): up to MAX_SINGLE_TREE_UPDATES new trees one by one,
-        more as one delta sum."""
+        more as one delta sum.
+
+        The cache key is an exact blake2b hash of the host bytes.  Only host
+        inputs (numpy arrays, CPU tensors) are keyed: hashing a CUDA tensor
+        would copy it to the host, so a CUDA input is always predicted in
+        full (the RL loops pass host arrays)."""
         assert self.ens is not None, "call reset() first"
-        Xn, Xc, key = self._prepare(inputs, grow_vocab=False)
-        cacheable = (key is not None and (start_idx in (0, None))
+        Xn, Xc, host = self._prepare(inputs, grow_vocab=False)
+        cacheable = (host is not None and (start_idx in (0, None))
                      and (stop_idx in (None, 0)) and Xc is None
                      and all(s.algo == "SGD" for s in self.specs))
+        key = _cache_key(host) if cacheable else None
         preds = None
         n_trees = self.get_num_trees() if cacheable else None
         if cacheable and self._pred_cache is not None:
@@ -289,6 +410,7 @@ class GBTLearner(BaseLearner):
         self.ens = self.ens.replace(
             bias=torch.from_numpy(b.copy()).to(self.torch_device))
         self._pred_cache = None   # bias is baked into cached predictions
+        self._bias_version = getattr(self, "_bias_version", 0) + 1
 
     def get_bias(self) -> np.ndarray:
         return self.ens.bias.cpu().numpy()

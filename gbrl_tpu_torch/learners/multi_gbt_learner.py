@@ -2,9 +2,8 @@
 of ``gbrl_tpu/learners/multi_gbt_learner.py``; reference
 gbrl/learners/multi_gbt_learner.py:44-873).
 
-This slice ports construction, prediction, introspection, save and load;
-fitting raises ``NotImplementedError`` until the fit path is ported.
-A checkpoint is one ``.gbrl_model`` per model plus a ``.gbrl_meta`` JSON
+Fitting (``step``, ``fit``) fans out to the per-model ``GBTLearner``s,
+addressed by ``model_idx`` or broadcast over all models.  A checkpoint is one ``.gbrl_model`` per model plus a ``.gbrl_meta`` JSON
 sidecar, as in the JAX package.
 """
 from __future__ import annotations
@@ -14,7 +13,8 @@ from typing import Dict, List, Optional, Union
 
 import numpy as np
 
-from .base import BaseLearner, not_ported
+from ..common.utils import NumericalData
+from .base import BaseLearner
 from .gbt_learner import GBTLearner
 
 
@@ -55,11 +55,27 @@ class MultiGBTLearner(BaseLearner):
         for lr in self.learners:
             lr.reset()
 
-    def step(self, *a, **k) -> None:
-        raise not_ported("MultiGBTLearner.step", "slice 2 (the fit path)")
+    def step(self, inputs: NumericalData, grads,
+             model_idx: Optional[int] = None) -> None:
+        if model_idx is not None:
+            self.learners[model_idx].step(inputs, grads)
+            return
+        assert isinstance(grads, (list, tuple)) and \
+            len(grads) == self.n_learners, \
+            "broadcast step requires one gradient array per learner"
+        for lr, gi in zip(self.learners, grads):
+            lr.step(inputs, gi)
 
-    def fit(self, *a, **k):
-        raise not_ported("MultiGBTLearner.fit", "slice 2 (the fit path)")
+    def fit(self, features, targets, iterations: int, shuffle: bool = True,
+            loss_type: str = "MultiRMSE",
+            model_idx: Optional[int] = None) -> Union[float, List[float]]:
+        sel = self._sel(model_idx)
+        losses = []
+        for i in sel:
+            t = targets[i] if isinstance(targets, (list, tuple)) else targets
+            losses.append(self.learners[i].fit(features, t, iterations,
+                                               shuffle, loss_type))
+        return losses[0] if len(sel) == 1 else losses
 
     # ------------------------------------------------------------- inference
     def predict(self, inputs, requires_grad: bool = True,

@@ -3,9 +3,11 @@ reference: gbrl/models/actor_critic.py:41-430).
 
 Policy and value in one model; ``shared_tree_struct`` selects one shared
 ensemble (policy over columns [0, out-1), value in the last column) or two
-separate ensembles.  This slice serves predictions: construction,
-``load_learner``, ``__call__``, ``predict_policy`` and ``predict_values``;
-the boosting steps come with the fit path (ROADMAP.md, slice 2).
+separate ensembles.  ``__call__`` / ``predict_policy`` / ``predict_values``
+return leaf tensors on the learner's device; after the caller backpropagates
+a mean-reduced loss, ``step`` (or, separate mode, ``actor_step`` /
+``critic_step``) takes ``grad * n_samples`` as per-sample gradients and fits
+one tree.
 """
 from __future__ import annotations
 
@@ -14,10 +16,10 @@ from typing import Dict, Optional
 
 import numpy as np
 
-from ..common.utils import numerical_dtype, setup_optimizer
+from ..common.utils import (clip_grad_norm, numerical_dtype, setup_optimizer,
+                            to_numpy, validate_array)
 from ..learners.actor_critic_learner import (SeparateActorCriticLearner,
                                              SharedActorCriticLearner)
-from ..learners.base import not_ported
 from .base import BaseGBT
 
 
@@ -114,14 +116,69 @@ class ActorCritic(BaseGBT):
             self.inputs = observations
         return params
 
-    def step(self, *args, **kwargs) -> None:
-        raise not_ported("ActorCritic.step", "slice 2 (the fit path)")
+    def step(self, observations=None, policy_grads=None, value_grads=None,
+             policy_grad_clip: Optional[float] = None,
+             value_grad_clip: Optional[float] = None) -> None:
+        """One boosting step on policy and value gradients (reference:
+        actor_critic.py:230-295)."""
+        if observations is None:
+            assert self.inputs is not None, (
+                "Cannot update trees without input. Make sure model is "
+                "called with requires_grad=True")
+            observations = self.inputs
+        if hasattr(observations, "ndim") and observations.ndim == 1:
+            n_samples = 1 if self.learner.input_dim > 1 else len(observations)
+        else:
+            n_samples = len(observations)
+        if policy_grads is None:
+            assert self.params is not None and self.params[0] is not None and \
+                self.params[0].grad is not None, \
+                "params[0].grad must be set to compute gradients."
+            policy_grads = self.params[0].grad.detach() * n_samples
+        if value_grads is None:
+            assert self.params is not None and self.params[1] is not None and \
+                self.params[1].grad is not None, \
+                "params[1].grad must be set to compute gradients."
+            value_grads = self.params[1].grad.detach() * n_samples
+        policy_grads = clip_grad_norm(policy_grads, policy_grad_clip)
+        value_grads = clip_grad_norm(value_grads, value_grad_clip)
+        validate_array(to_numpy(policy_grads))
+        validate_array(to_numpy(value_grads))
+        if self.shared_tree_struct:
+            self.learner.step(observations, (policy_grads, value_grads))
+        else:
+            self.learner.step(observations, [policy_grads, value_grads])
+        self.policy_grads = policy_grads
+        self.value_grads = value_grads
+        self.inputs = None
 
-    def actor_step(self, *args, **kwargs) -> None:
-        raise not_ported("ActorCritic.actor_step", "slice 2 (the fit path)")
+    def actor_step(self, observations=None, policy_grads=None,
+                   policy_grad_clip: Optional[float] = None) -> None:
+        """Separate mode only (reference: actor_critic.py:296-338)."""
+        assert not self.shared_tree_struct, \
+            "actor_step is only available for separate actor-critic"
+        if observations is None:
+            observations = self.inputs
+        if policy_grads is None:
+            policy_grads = self.params[0].grad.detach() * len(observations)
+        policy_grads = clip_grad_norm(policy_grads, policy_grad_clip)
+        validate_array(to_numpy(policy_grads))
+        self.learner.step_actor(observations, policy_grads)
+        self.policy_grads = policy_grads
 
-    def critic_step(self, *args, **kwargs) -> None:
-        raise not_ported("ActorCritic.critic_step", "slice 2 (the fit path)")
+    def critic_step(self, observations=None, value_grads=None,
+                    value_grad_clip: Optional[float] = None) -> None:
+        """Separate mode only (reference: actor_critic.py:339-380)."""
+        assert not self.shared_tree_struct, \
+            "critic_step is only available for separate actor-critic"
+        if observations is None:
+            observations = self.inputs
+        if value_grads is None:
+            value_grads = self.params[1].grad.detach() * len(observations)
+        value_grads = clip_grad_norm(value_grads, value_grad_clip)
+        validate_array(to_numpy(value_grads))
+        self.learner.step_critic(observations, value_grads)
+        self.value_grads = value_grads
 
     def get_grads(self):
         return self.policy_grads, self.value_grads

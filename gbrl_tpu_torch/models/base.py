@@ -2,8 +2,8 @@
 reference: gbrl/models/base.py:38-444).
 
 Models hold the last forward pass's differentiable leaf tensors in
-``self.params``; ``step()`` (with the fit path, slice 2) will harvest their
-``.grad`` and delegate one boosting iteration to the learner.
+``self.params``; ``step()`` harvests their ``.grad`` (scaled by n_samples)
+and delegates one boosting iteration to the learner.
 """
 from __future__ import annotations
 

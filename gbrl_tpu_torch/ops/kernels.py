@@ -1,23 +1,29 @@
-"""Hand-written CUDA predict kernels (K4, K5) and their plain PyTorch versions.
+"""Hand-written CUDA kernels (K1-K5) and their plain PyTorch versions.
 
-Counterpart of ``gbrl_tpu/ops/pallas_kernels.py`` for the predict path:
+Counterpart of ``gbrl_tpu/ops/pallas_kernels.py``:
 
+- ``bucketize_cuda``          replaces ``bucketize_pallas`` (K1);
+- ``level_histogram_cuda``    replaces ``level_histogram_pallas`` (K2);
+- ``level_score_cuda``        replaces ``level_score_pallas`` (K3);
 - ``weighted_leaf_sum_cuda``  replaces ``weighted_leaf_sum_pallas`` (K4);
 - ``oblivious_leaf_sum_cuda`` replaces ``oblivious_leaf_sum_pallas`` (K5).
 
-Both compute ``sum_{t < n_trees} w[t, leaf(n, t), :] -> [N, O]`` with
-``w = leaf_values * coeff`` already folded.  The CUDA sources live in
-``gbrl_tpu_torch/csrc/predict.cu``; they are compiled at first use with
-``nvcc`` into a shared library with a C interface, keyed by a hash of the
-sources and flags, and loaded with ``ctypes``.  The library goes under
-``build/gbrl_tpu_torch_kernels/`` at the root of a source checkout, under
-``$GBRL_TPU_TORCH_BUILD_DIR`` if that is set, and otherwise (an installed
-package) under ``$XDG_CACHE_HOME`` or ``~/.cache``, in
+K1-K3 are the fit path (``csrc/fit.cu``): bucket ids, one level's gradient
+histogram, one level's split choice.  K4 and K5 compute
+``sum_{t < n_trees} w[t, leaf(n, t), :] -> [N, O]`` with
+``w = leaf_values * coeff`` already folded (``csrc/predict.cu``).  The CUDA
+sources are compiled at first use with ``nvcc``, one process per source
+started together, and linked into one shared library with a C interface,
+keyed by a hash of the sources and flags, and loaded with ``ctypes``.  The
+library goes under ``build/gbrl_tpu_torch_kernels/`` at the root of a source
+checkout, under ``$GBRL_TPU_TORCH_BUILD_DIR`` if that is set, and otherwise
+(an installed package) under ``$XDG_CACHE_HOME`` or ``~/.cache``, in
 ``gbrl_tpu_torch_kernels/``.
 
 A wrapper given CPU tensors runs the plain version.  Given CUDA tensors it
 launches the kernel or raises: it never falls back.  Each wrapper counts its
-kernel launches in ``launch_counts`` (the CPU branch does not count).
+calls that launch on the card in ``launch_counts`` (one per call, although
+K2 and K3 each launch two kernels; the CPU branch does not count).
 """
 from __future__ import annotations
 
@@ -34,9 +40,12 @@ from typing import Callable, Union
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("predict.cu",)
+SOURCES = ("predict.cu", "fit.cu")
+# per-source compile flags; the objects are linked with -shared
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
+LIB_NAME = "libgbrl_kernels.so"
 BUILD_NAME = "gbrl_tpu_torch_kernels"
 
 # trees staged per shared-memory chunk: at most this many, fewer when the
@@ -46,7 +55,8 @@ MAX_CHUNK = 128
 SMEM_BUDGET = 100 * 1024
 PLAIN_TREE_CHUNK = 512
 
-launch_counts = {"weighted_leaf_sum": 0, "oblivious_leaf_sum": 0}
+launch_counts = {"bucketize": 0, "level_histogram": 0, "level_score": 0,
+                 "weighted_leaf_sum": 0, "oblivious_leaf_sum": 0}
 
 
 def reset_launch_counts() -> None:
@@ -132,8 +142,8 @@ def _nvcc() -> str:
         return found
     if Path("/usr/local/cuda/bin/nvcc").exists():
         return "/usr/local/cuda/bin/nvcc"
-    raise RuntimeError("nvcc not found: the CUDA predict kernels cannot be "
-                       "built (set CUDA_HOME)")
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built "
+                       "(set CUDA_HOME)")
 
 
 def build_dir() -> Path:
@@ -149,33 +159,46 @@ def build_dir() -> Path:
 
 
 def _source_key() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for name in SOURCES:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds) -> None:
+    """Run the commands as parallel processes; raise on the first failure
+    after all have ended."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    outs = [(cmd, p.communicate()[0], p.returncode) for cmd, p in procs]
+    for cmd, out, rc in outs:
+        if rc != 0:
+            raise RuntimeError("nvcc failed building the kernels:\n"
+                               + " ".join(cmd) + "\n" + out)
+
+
 def build_library() -> Path:
-    """Compile the sources into ``build_dir()/<hash>/libgbrl_predict.so``
+    """Compile each source to an object (one nvcc per source, all started
+    together) and link them into ``build_dir()/<hash>/libgbrl_kernels.so``
     unless that file exists; returns its path.  The library is written to a
     temporary name and renamed, so concurrent builders never load a partial
     file."""
     out_dir = build_dir() / _source_key()
-    lib = out_dir / "libgbrl_predict.so"
+    lib = out_dir / LIB_NAME
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[str(CSRC / name) for name in SOURCES]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError("nvcc failed building the predict kernels:\n"
-                           + " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    os.replace(tmp, lib)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp_dir:
+        objs = [str(Path(tmp_dir) / (Path(name).stem + ".o"))
+                for name in SOURCES]
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", str(CSRC / name), "-o", obj]
+                  for name, obj in zip(SOURCES, objs)])
+        tmp_lib = str(Path(tmp_dir) / LIB_NAME)
+        _run_all([[nvcc, *LINK_FLAGS, "-o", tmp_lib, *objs]])
+        os.replace(tmp_lib, lib)
     return lib
 
 
@@ -195,6 +218,21 @@ def _library() -> ctypes.CDLL:
     lib.gbrl_max_smem_optin.restype = i32
     lib.gbrl_cuda_error_string.argtypes = [i32]
     lib.gbrl_cuda_error_string.restype = ctypes.c_char_p
+    size = ctypes.c_size_t
+    lib.gbrl_k1_bucketize.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
+    lib.gbrl_k2_level_histogram.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
+    lib.gbrl_k3_level_score.argtypes = ([ptr] * 7 + [i32] * 6
+                                        + [ctypes.c_float, i32, i32, ptr])
+    for name in ("gbrl_k1_bucketize", "gbrl_k2_level_histogram",
+                 "gbrl_k3_level_score", "gbrl_k2_block_pairs"):
+        getattr(lib, name).restype = i32
+    lib.gbrl_k2_block_pairs.argtypes = []
+    lib.gbrl_k1_smem_bytes.argtypes = [i32, i32]
+    lib.gbrl_k2_smem_bytes.argtypes = [i32]
+    lib.gbrl_k3_smem_bytes.argtypes = [i32, i32]
+    for name in ("gbrl_k1_smem_bytes", "gbrl_k2_smem_bytes",
+                 "gbrl_k3_smem_bytes"):
+        getattr(lib, name).restype = size
     return lib
 
 
@@ -239,16 +277,9 @@ def _chunk(lib, device: torch.device, F: int, K: int, max_depth: int,
     while C > group and lib.gbrl_leaf_sum_smem_bytes(F, C, K, max_depth,
                                                       O) > SMEM_BUDGET:
         C //= 2
-    need = lib.gbrl_leaf_sum_smem_bytes(F, C, K, max_depth, O)
-    limit = lib.gbrl_max_smem_optin(device.index if device.index is not None
-                                    else torch.cuda.current_device())
-    if limit < 0:
-        raise RuntimeError("cannot query the device's shared-memory limit")
-    if need > limit:
-        raise ValueError(
-            f"the predict kernel needs {need} B of shared memory per block "
-            f"at F={F}, depth={max_depth}, O={O} (chunk of {C} trees), more "
-            f"than the device's {limit} B")
+    _smem_fits(lib, device, lib.gbrl_leaf_sum_smem_bytes(F, C, K, max_depth, O),
+               f"the predict kernel at F={F}, depth={max_depth}, O={O} "
+               f"(chunk of {C} trees)")
     return C
 
 
@@ -262,15 +293,10 @@ def _launch(fn_name: str, count_key: str, K: int, X, feat, thr, is_split, w,
     if N == 0 or O == 0:
         return out
     C = _chunk(lib, X.device, F, K, max_depth, O)
-    with torch.cuda.device(X.device):
-        stream = torch.cuda.current_stream(X.device).cuda_stream
-        rc = getattr(lib, fn_name)(
-            X.data_ptr(), feat.data_ptr(), thr.data_ptr(), is_split.data_ptr(),
-            w.data_ptr(), n_trees.data_ptr(), out.data_ptr(), N, F,
-            feat.shape[0], max_depth, O, C, stream)
-    if rc != 0:
-        raise RuntimeError(f"{fn_name} failed: CUDA error {rc} "
-                           f"({lib.gbrl_cuda_error_string(rc).decode()})")
+    _call(lib, fn_name, X.device, X.data_ptr(), feat.data_ptr(),
+          thr.data_ptr(), is_split.data_ptr(), w.data_ptr(),
+          n_trees.data_ptr(), out.data_ptr(), N, F, feat.shape[0], max_depth,
+          O, C)
     launch_counts[count_key] += 1
     return out
 
@@ -304,3 +330,291 @@ def oblivious_leaf_sum_cuda(X: torch.Tensor, feat: torch.Tensor,
                                         n_trees)
     return _launch("gbrl_k5_leaf_sum", "oblivious_leaf_sum", max_depth, X,
                    feat, thr, is_split, w, max_depth, n_trees)
+
+
+# ================================================================ fit path
+# K1-K3 (csrc/fit.cu).  Shared memory a K1 / K2 block may use; K3's need is
+# set by O and the bucket count.
+FIT_SMEM_BUDGET = 96 * 1024
+# K2's pass 1 aims for about two blocks per SM of an H100 (132 SMs) and
+# never gives a block fewer than HIST_MIN_TILE samples
+HIST_TARGET_BLOCKS = 264
+HIST_MIN_TILE = 64
+# rows per chunk of the plain bucketize (bounds its [rows, F, B] compare)
+PLAIN_BUCKETIZE_ELEMS = 1 << 22
+
+
+def bucketize_plain(X: torch.Tensor, cand_vals: torch.Tensor) -> torch.Tensor:
+    """K1's function in plain torch: ``out[n, f] = #{b : cand[f, b] <
+    X[n, f]}`` as int32 (NaN counts 0)."""
+    N, F = X.shape
+    B = cand_vals.shape[1]
+    out = torch.empty((N, F), dtype=torch.int32, device=X.device)
+    rows = max(1, PLAIN_BUCKETIZE_ELEMS // max(1, F * B))
+    for n0 in range(0, N, rows):
+        x = X[n0:n0 + rows]
+        out[n0:n0 + rows] = (cand_vals[None] < x[:, :, None]).sum(
+            -1, dtype=torch.int32)
+    return out
+
+
+def level_histogram_plain(Xb: torch.Tensor, nd: torch.Tensor,
+                          n_buckets: int) -> torch.Tensor:
+    """K2's function in plain torch: ``hist[f, c, b] = sum_n [Xb[n, f] == b]
+    * nd[n, c]`` -> [F, C, n_buckets] f32, one ``index_add_`` over the
+    flattened (feature, bucket) ids.  Bucket ids outside [0, n_buckets)
+    add nothing."""
+    N, F = Xb.shape
+    C = nd.shape[1]
+    dev = Xb.device
+    valid = (Xb >= 0) & (Xb < n_buckets)
+    ids = (torch.arange(F, device=dev)[None, :] * n_buckets
+           + Xb.long().clamp(0, max(n_buckets - 1, 0)))
+    src = torch.where(valid[:, :, None], nd[:, None, :],
+                      torch.zeros((), dtype=nd.dtype, device=dev))
+    out = torch.zeros((F * n_buckets, C), dtype=torch.float32, device=dev)
+    out.index_add_(0, ids.reshape(-1), src.reshape(N * F, C))
+    return out.reshape(F, n_buckets, C).transpose(1, 2).contiguous()
+
+
+def level_score_rows(hist: torch.Tensor, blocked: torch.Tensor,
+                     feat_w: torch.Tensor, n_bins: int, out_dim: int,
+                     score: str, min_data: int, oblivious: bool,
+                     is_root: bool):
+    """The candidate scores K3 chooses from, in plain torch: (rows
+    [n_nodes, F * n_bins] greedy adjusted scores, or [1, F * n_bins] the
+    oblivious level sums, NaN -> -inf; the tie band's extra base per row;
+    node_cnt [n_nodes]; parent [n_nodes]; node_sum [n_nodes, O]).
+    Arguments as ``level_score_plain``."""
+    F, C, NB = hist.shape
+    n_nodes = blocked.shape[0]
+    O, B, K = out_dim, n_bins, out_dim + 1
+    dev = hist.device
+    h = hist.reshape(F, n_nodes, K, NB)
+    cs = torch.empty_like(h)
+    acc = torch.zeros_like(h[..., 0])
+    for b in range(NB):
+        acc = acc + h[..., b]
+        cs[..., b] = acc
+    tot = cs[0, :, :, NB - 1]                                # [n_nodes, K]
+    ct = tot[:, O]
+    sq = torch.zeros_like(ct)
+    for o in range(O):
+        sq = sq + tot[:, o] * tot[:, o]
+    one = torch.ones((), dtype=torch.float32, device=dev)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    neg = torch.full((), float("-inf"), dtype=torch.float32, device=dev)
+    p = torch.where(ct > 0, sq / torch.where(ct > 0, ct, one), zero)
+    if score == "cosine":
+        p = torch.where(p > 0, torch.sqrt(torch.where(p > 0, p, one)), zero)
+    parent = torch.zeros_like(p) if is_root else p
+    csn = cs.transpose(0, 1)                              # [n, F, K, NB]
+    cl = csn[:, :, O, :B]
+    cr = ct[:, None, None] - cl
+    l2l = torch.zeros_like(cl)
+    l2r = torch.zeros_like(cl)
+    for o in range(O):
+        lo = csn[:, :, o, :B]
+        ro = tot[:, o][:, None, None] - lo
+        l2l = l2l + lo * lo
+        l2r = l2r + ro * ro
+    sL = torch.where(cl > 0, l2l / torch.where(cl > 0, cl, one), zero)
+    sR = torch.where(cr > 0, l2r / torch.where(cr > 0, cr, one), zero)
+    s = sL + sR
+    if score == "cosine":
+        s = torch.where(s > 0, torch.sqrt(torch.where(s > 0, s, one)), zero)
+    if min_data > 0:
+        s = torch.where((cl < min_data) | (cr < min_data), neg, s)
+    s = s * feat_w[None, :, None]                # -inf * 0 -> NaN -> -inf
+    s = torch.where(blocked, neg, s).reshape(n_nodes, F * B)
+    if oblivious:
+        total = torch.zeros_like(s[0])
+        for n in range(n_nodes):
+            total = total + s[n]
+        rows = torch.where(torch.isnan(total), neg, total)[None]
+        scale = zero
+    else:
+        adj = s - parent[:, None]
+        rows = torch.where(torch.isnan(adj), neg, adj)
+        scale = parent.abs()[:, None]
+    return rows, scale, ct, parent, tot[:, :O]
+
+
+def level_score_plain(hist: torch.Tensor, blocked: torch.Tensor,
+                      feat_w: torch.Tensor, n_bins: int, out_dim: int,
+                      score: str, min_data: int, oblivious: bool,
+                      is_root: bool):
+    """K3's function in plain torch, with the kernel's arithmetic step for
+    step (sequential f32 prefix sums over the buckets, products and sums in
+    the same order), so on the same histogram the two agree bit for bit.
+
+    hist [F, n_nodes * (O + 1), n_bins + 1] f32 (K2's layout: column
+    node * (O + 1) + o, o == O the sample weights); blocked [n_nodes, F,
+    n_bins] bool no-reuse mask; feat_w [F] f32.  Returns (best_idx
+    [n_nodes] int32 merged index f * n_bins + b, best [n_nodes] f32 the
+    adjusted score there, node_cnt [n_nodes], parent [n_nodes] (0 at the
+    root), node_sum [n_nodes, O]).  Oblivious levels carry the level-summed
+    argmax in every node."""
+    rows, scale, ct, parent, sums = level_score_rows(
+        hist, blocked, feat_w, n_bins, out_dim, score, min_data, oblivious,
+        is_root)
+    m = rows.max(dim=1, keepdim=True).values
+    tol = torch.where(torch.isfinite(m), (m.abs() + scale) * 2e-6,
+                      torch.zeros_like(m))
+    idx = torch.argmax((rows >= m - tol).to(torch.uint8), dim=1)
+    best = rows.gather(1, idx[:, None])[:, 0]
+    best_idx = idx.to(torch.int32)
+    n_nodes = blocked.shape[0]
+    if oblivious:
+        best_idx = best_idx.expand(n_nodes).contiguous()
+        best = best.expand(n_nodes).contiguous()
+    return best_idx, best, ct, parent, sums
+
+
+def _fit_check(named: dict, want: dict) -> torch.device:
+    dev = next(iter(named.values())).device
+    for name, t in named.items():
+        if not isinstance(t, torch.Tensor) or t.device != dev:
+            raise ValueError(f"{name} must be a tensor on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.dtype != want[name][0]:
+            raise ValueError(f"{name} must be {want[name][0]}, got {t.dtype}")
+        if t.dim() != want[name][1]:
+            raise ValueError(f"{name} must have {want[name][1]} dims, got "
+                             f"{tuple(t.shape)}")
+    return dev
+
+
+def _smem_fits(lib, dev: torch.device, need: int, what: str) -> None:
+    limit = lib.gbrl_max_smem_optin(dev.index if dev.index is not None
+                                    else torch.cuda.current_device())
+    if limit < 0:
+        raise RuntimeError("cannot query the device's shared-memory limit")
+    if need > limit:
+        raise ValueError(f"{what} needs {need} B of shared memory per block, "
+                         f"more than the device's {limit} B")
+
+
+def _call(lib, fn_name: str, dev: torch.device, *args) -> None:
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = getattr(lib, fn_name)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn_name} failed: CUDA error {rc} "
+                           f"({lib.gbrl_cuda_error_string(rc).decode()})")
+
+
+def bucketize_cuda(X: torch.Tensor, cand_vals: torch.Tensor) -> torch.Tensor:
+    """K1: [N, F] f32 x [F, B] f32 (ascending per row) -> [N, F] int32
+    bucket ids, the number of candidates strictly below x."""
+    if X.device.type == "cpu":
+        return bucketize_plain(X, cand_vals)
+    dev = _fit_check(dict(X=X, cand_vals=cand_vals),
+                     dict(X=(torch.float32, 2), cand_vals=(torch.float32, 2)))
+    N, F = X.shape
+    B = cand_vals.shape[1]
+    if cand_vals.shape[0] != F or B < 1:
+        raise ValueError(f"cand_vals must be [{F}, B >= 1], got "
+                         f"{tuple(cand_vals.shape)}")
+    lib = _library()
+    out = torch.empty((N, F), dtype=torch.int32, device=dev)
+    if N == 0 or F == 0:
+        return out
+    # whole candidate rows when one fits FIT_SMEM_BUDGET, else one feature
+    # per block with its candidates staged in ranges
+    bc = min(B, FIT_SMEM_BUDGET // 4 - 1)
+    fc = min(F, FIT_SMEM_BUDGET // (4 * (bc + 1)))
+    _smem_fits(lib, dev, lib.gbrl_k1_smem_bytes(fc, bc), "bucketize")
+    _call(lib, "gbrl_k1_bucketize", dev, X.data_ptr(), cand_vals.data_ptr(),
+          out.data_ptr(), N, F, B, fc, bc)
+    launch_counts["bucketize"] += 1
+    return out
+
+
+def _hist_tiling(N: int, F: int, C: int, n_buckets: int, pairs: int):
+    """K2's launch shape -> (samples per tile, tiles, buckets per range):
+    bucket ranges that fit FIT_SMEM_BUDGET, then enough sample tiles for
+    about HIST_TARGET_BLOCKS pass-1 blocks."""
+    BR = min(n_buckets, FIT_SMEM_BUDGET // (4 * pairs))
+    jblocks = -(-(F * C) // pairs)
+    bchunks = -(-n_buckets // BR)
+    n_tiles = max(1, min(-(-N // HIST_MIN_TILE),
+                         -(-HIST_TARGET_BLOCKS // (jblocks * bchunks))))
+    tile = -(-N // n_tiles)
+    return tile, -(-N // tile), BR
+
+
+def level_histogram_cuda(Xb: torch.Tensor, nd: torch.Tensor,
+                         n_buckets: int) -> torch.Tensor:
+    """K2: [N, F] int32 bucket ids x [N, C] f32 rows -> [F, C, n_buckets]
+    f32 with ``hist[f, c, b] = sum_n [Xb[n, f] == b] * nd[n, c]``.  The
+    caller packs node-masked gradient columns into ``nd`` (C = n_nodes *
+    (O + 1)).  Deterministic: the same inputs give the same bits."""
+    if Xb.device.type == "cpu":
+        return level_histogram_plain(Xb, nd, n_buckets)
+    dev = _fit_check(dict(Xb=Xb, nd=nd),
+                     dict(Xb=(torch.int32, 2), nd=(torch.float32, 2)))
+    N, F = Xb.shape
+    C = nd.shape[1]
+    if nd.shape[0] != N or n_buckets < 1:
+        raise ValueError(f"nd must be [{N}, C] and n_buckets >= 1, got "
+                         f"{tuple(nd.shape)}, {n_buckets}")
+    lib = _library()
+    if N == 0 or F == 0 or C == 0:
+        return torch.zeros((F, C, n_buckets), dtype=torch.float32, device=dev)
+    pairs = lib.gbrl_k2_block_pairs()
+    tile, n_tiles, BR = _hist_tiling(N, F, C, n_buckets, pairs)
+    if -(-(F * C) // pairs) > 65535:
+        raise ValueError(f"level_histogram takes at most {65535 * pairs} "
+                         f"(feature, column) pairs, got {F * C}")
+    _smem_fits(lib, dev, lib.gbrl_k2_smem_bytes(BR), "level_histogram")
+    out = torch.empty((F, C, n_buckets), dtype=torch.float32, device=dev)
+    part = (torch.empty((n_tiles, F * C, n_buckets), dtype=torch.float32,
+                        device=dev) if n_tiles > 1 else out)
+    _call(lib, "gbrl_k2_level_histogram", dev, Xb.data_ptr(), nd.data_ptr(),
+          part.data_ptr(), out.data_ptr(), N, F, C, n_buckets, tile, n_tiles,
+          BR)
+    launch_counts["level_histogram"] += 1
+    return out
+
+
+def level_score_cuda(hist: torch.Tensor, blocked: torch.Tensor,
+                     feat_w: torch.Tensor, n_bins: int, out_dim: int,
+                     score: str, min_data: int, oblivious: bool,
+                     is_root: bool):
+    """K3: one level's split choice from K2's histogram (arguments and
+    results as ``level_score_plain``)."""
+    if hist.device.type == "cpu":
+        return level_score_plain(hist, blocked, feat_w, n_bins, out_dim,
+                                 score, min_data, oblivious, is_root)
+    dev = _fit_check(dict(hist=hist, blocked=blocked, feat_w=feat_w),
+                     dict(hist=(torch.float32, 3), blocked=(torch.bool, 3),
+                          feat_w=(torch.float32, 1)))
+    F, C, NB = hist.shape
+    n_nodes = blocked.shape[0]
+    O = out_dim
+    if (C != n_nodes * (O + 1) or NB != n_bins + 1
+            or tuple(blocked.shape[1:]) != (F, n_bins)
+            or feat_w.shape[0] != F or F < 1 or n_bins < 1):
+        raise ValueError(
+            f"level_score: hist {tuple(hist.shape)}, blocked "
+            f"{tuple(blocked.shape)}, feat_w {tuple(feat_w.shape)} do not "
+            f"fit n_bins={n_bins}, out_dim={O}")
+    if n_nodes > 65535:
+        raise ValueError(f"level_score takes at most 65535 nodes, got "
+                         f"{n_nodes}")
+    lib = _library()
+    _smem_fits(lib, dev, lib.gbrl_k3_smem_bytes(O, NB), "level_score")
+    f32 = dict(dtype=torch.float32, device=dev)
+    adj = torch.empty((n_nodes, F * n_bins), **f32)
+    stats = torch.empty((n_nodes, O + 2), **f32)
+    best_idx = torch.empty((n_nodes,), dtype=torch.int32, device=dev)
+    best = torch.empty((n_nodes,), **f32)
+    _call(lib, "gbrl_k3_level_score", dev, hist.data_ptr(), blocked.data_ptr(),
+          feat_w.data_ptr(), adj.data_ptr(), stats.data_ptr(),
+          best_idx.data_ptr(), best.data_ptr(), F, n_nodes, O, NB, n_bins,
+          int(score == "cosine"), float(min_data), int(bool(oblivious)),
+          int(bool(is_root)))
+    launch_counts["level_score"] += 1
+    return best_idx, best, stats[:, O], stats[:, O + 1], stats[:, :O]

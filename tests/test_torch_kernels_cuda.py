@@ -1,4 +1,4 @@
-"""K4/K5 CUDA kernels against their plain versions, on the card.
+"""K1-K5 CUDA kernels against their plain versions, on the card.
 
 Marked ``cuda``: every test takes the ``cuda_device`` fixture, which skips
 when PyTorch sees no CUDA device (CUDA kernels have no CPU mode).  Run on a
@@ -16,8 +16,8 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the predict kernels run only on "
-                    "the card")
+        pytest.skip("needs a CUDA device: the CUDA kernels run only on the "
+                    "card")
     return torch.device("cuda")
 
 
@@ -95,3 +95,132 @@ def test_wrapper_raises_past_shared_memory_ceiling(cuda_device):
     nt = torch.tensor(T, dtype=torch.int32, device=cuda_device)
     with pytest.raises(ValueError, match="shared memory"):
         K.weighted_leaf_sum_cuda(X, feat, thr, spl, w, D, nt)
+
+
+# ------------------------------------------------------------ fit kernels
+def _fit_inputs(rng, dev, n, f, b, n_nodes, o=3):
+    from gbrl_tpu_torch.ops.fit import _node_expand
+    X = rng.normal(size=(n, f)).astype(np.float32)
+    cand = np.sort(rng.normal(size=(f, b)).astype(np.float32), axis=1)
+    cand[:, b // 4:b // 4 + 3] = cand[:, b // 4:b // 4 + 1]   # duplicates
+    X[: n // 8] = cand[:, b // 2][None, :]                    # x == candidate
+    X[-2:] = np.nan
+    Xd, cd = (torch.from_numpy(a).to(dev) for a in (X, cand))
+    rel = torch.from_numpy(rng.integers(0, n_nodes, n).astype(np.int32)).to(dev)
+    g = torch.from_numpy(rng.normal(size=(n, o)).astype(np.float32)).to(dev)
+    nd = _node_expand(rel, g, torch.ones(n, device=dev), n_nodes)
+    return Xd, cd, nd
+
+
+@pytest.mark.parametrize("n,f,b", [(4096, 16, 256), (1000, 300, 256),
+                                   (33, 3, 1), (5, 2, 3000),
+                                   (300, 3, 40000)])   # candidate ranges
+def test_bucketize_bit_equal(cuda_device, n, f, b):
+    Xd, cd, _ = _fit_inputs(np.random.default_rng(n), cuda_device, n, f, b, 1)
+    got = K.bucketize_cuda(Xd, cd)
+    torch.cuda.synchronize()
+    assert torch.equal(got, K.bucketize_plain(Xd, cd))
+    assert torch.equal(got.cpu(), K.bucketize_plain(Xd.cpu(), cd.cpu()))
+
+
+@pytest.mark.parametrize("n,f,nb,n_nodes", [(4096, 16, 257, 8),
+                                            (4096, 16, 257, 1),
+                                            (1000, 300, 257, 2),
+                                            (777, 5, 1025, 4), (10, 3, 9, 2)])
+def test_level_histogram_deterministic(cuda_device, n, f, nb, n_nodes):
+    Xd, cd, nd = _fit_inputs(np.random.default_rng(f), cuda_device, n, f,
+                             nb - 1, n_nodes)
+    Xb = K.bucketize_cuda(Xd, cd)
+    first = K.level_histogram_cuda(Xb, nd, nb)
+    for _ in range(3):
+        assert torch.equal(K.level_histogram_cuda(Xb, nd, nb), first)
+    # the plain version adds in another order (index_add_): 1e-5 of scale
+    want = K.level_histogram_plain(Xb, nd, nb)
+    err = (first - want).abs().max().item()
+    assert err <= 1e-5 * want.abs().max().item() + 1e-6, err
+
+
+@pytest.mark.parametrize("oblivious", [False, True])
+@pytest.mark.parametrize("score", ["cosine", "l2"])
+@pytest.mark.parametrize("n_nodes,min_data", [(1, 0), (8, 0), (8, 30)])
+def test_level_score_matches_plain(cuda_device, oblivious, score, n_nodes,
+                                   min_data):
+    rng = np.random.default_rng(n_nodes + min_data)
+    F, B = 16, 256
+    Xd, cd, nd = _fit_inputs(rng, cuda_device, 4096, F, B, n_nodes)
+    hist = K.level_histogram_cuda(K.bucketize_cuda(Xd, cd), nd, B + 1)
+    blocked = torch.from_numpy(rng.random((n_nodes, F, B)) < 0.05
+                               ).to(cuda_device)
+    fw = torch.from_numpy(rng.uniform(0.5, 1.5, F).astype(np.float32)
+                          ).to(cuda_device)
+    fw[3] = 0.0
+    args = (hist, blocked, fw, B, 3, score, min_data, oblivious, n_nodes == 1)
+    got = K.level_score_cuda(*args)
+    want = K.level_score_plain(*args)
+    torch.cuda.synchronize()
+    # the kernel repeats the plain version's arithmetic: equal bits
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_build_tree_on_card_matches_cpu(cuda_device):
+    from gbrl_tpu_torch.config import TreeConfig
+    from gbrl_tpu_torch.ops import candidates as C
+    from gbrl_tpu_torch.ops.fit import build_tree
+    rng = np.random.default_rng(9)
+    X = rng.normal(size=(2000, 8)).astype(np.float32)
+    g = rng.normal(size=(2000, 3)).astype(np.float32)
+    for policy in ("greedy", "oblivious"):
+        cfg = TreeConfig(input_dim=8, output_dim=3, n_num_features=8,
+                         max_depth=4, n_bins=32, grow_policy=policy)
+        trees = []
+        for dev in (cuda_device, torch.device("cpu")):
+            Xt, gt = (torch.from_numpy(a).to(dev) for a in (X, g))
+            cand = C.numerical_candidates(cfg, Xt)
+            trees.append(build_tree(cfg, C.bucketize(Xt, cand), cand, gt, gt,
+                                    torch.ones(2000, device=dev),
+                                    torch.ones(8, device=dev)))
+        card, cpu = ({k: v.cpu() for k, v in t.items()} for t in trees)
+        for k in ("feat", "is_split", "thr", "counts", "depth"):
+            assert torch.equal(card[k], cpu[k]), k
+        assert torch.allclose(card["leaf_values"], cpu["leaf_values"],
+                              rtol=1e-5, atol=1e-6)
+
+
+class _FailingLibrary:
+    """The built library with one entry point that reports a CUDA error."""
+
+    def __init__(self, lib, failing: str):
+        self._lib, self._failing = lib, failing
+
+    def __getattr__(self, name):
+        if name == self._failing:
+            return lambda *args: 1                  # cudaErrorInvalidValue
+        return getattr(self._lib, name)
+
+
+@pytest.mark.parametrize("entry", ["gbrl_k1_bucketize",
+                                   "gbrl_k2_level_histogram",
+                                   "gbrl_k3_level_score"])
+def test_failing_launch_raises_without_fallback(cuda_device, monkeypatch,
+                                                entry):
+    """A wrapper whose library call fails raises: it neither falls back to
+    the plain version nor counts a launch."""
+    Xd, cd, nd = _fit_inputs(np.random.default_rng(0), cuda_device, 256, 4,
+                             16, 2)
+    Xb = K.bucketize_cuda(Xd, cd)
+    hist = K.level_histogram_cuda(Xb, nd, 17)
+    blocked = torch.zeros((2, 4, 16), dtype=torch.bool, device=cuda_device)
+    fw = torch.ones(4, device=cuda_device)
+    calls = {"gbrl_k1_bucketize": lambda: K.bucketize_cuda(Xd, cd),
+             "gbrl_k2_level_histogram":
+                 lambda: K.level_histogram_cuda(Xb, nd, 17),
+             "gbrl_k3_level_score":
+                 lambda: K.level_score_cuda(hist, blocked, fw, 16, 3,
+                                            "cosine", 0, False, False)}
+    real = K._library()
+    monkeypatch.setattr(K, "_library", lambda: _FailingLibrary(real, entry))
+    before = dict(K.launch_counts)
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        calls[entry]()
+    assert K.launch_counts == before
