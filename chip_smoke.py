@@ -55,6 +55,7 @@ prints, before the last line, the nvidia-smi name/power-limit line and one
 JSON line describing each kernel; the last line is the ok/device JSON.
 """
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -86,7 +87,8 @@ REPLACES = {"weighted_leaf_sum": "gbrl_tpu/ops/pallas_kernels.py:723",
             "oblivious_leaf_sum": "gbrl_tpu/ops/pallas_kernels.py:851",
             "bucketize": "gbrl_tpu/ops/pallas_kernels.py:46",
             "level_histogram": "gbrl_tpu/ops/pallas_kernels.py:97",
-            "level_score": "gbrl_tpu/ops/pallas_kernels.py:215"}
+            "level_score": "gbrl_tpu/ops/pallas_kernels.py:215",
+            "tree_build": "gbrl_tpu/ops/pallas_kernels.py:359"}
 PREDICT_KERNELS = ("weighted_leaf_sum", "oblivious_leaf_sum")
 # the fit path at full width (bench.py:48-58): quantile candidates, 256 bins
 # (257 buckets), cosine score
@@ -103,6 +105,77 @@ TIE_RTOL = 1e-5
 STEP_WARMUP = 5
 # wide and deep numeric trees that build_tree must send to K2 / K3
 WIDE_TREES = ((300, 4), (16, 6))
+
+
+class VecCartPole:
+    """CartPole-v1 for ``n`` envs in numpy, with the interface PPO and A2C
+    read from a gymnasium vector env (``num_envs``,
+    ``single_observation_space.shape``, ``single_action_space.n``, ``reset``,
+    ``step``): the card's machine has no gymnasium.  The equations, constants
+    and Euler step of gymnasium's ``envs/classic_control/cartpole.py`` on a
+    float64 state; termination at |x| > 2.4 or |theta| > 12 degrees; reward 1
+    on every stepped row; truncation after 500 steps (the TimeLimit of
+    CartPole-v1); and the next-step autoreset of gymnasium's vector envs: a
+    row that ended is reset on the following step, which returns the reset
+    observation, reward 0 and neither flag (``RolloutBuffer.flat`` masks such
+    rows).  Resets draw from U(-0.05, 0.05) with a numpy generator seeded by
+    ``reset(seed)``."""
+    GRAVITY, MASSCART, MASSPOLE, LENGTH = 9.8, 1.0, 0.1, 0.5
+    FORCE_MAG, TAU, X_LIMIT, MAX_STEPS = 10.0, 0.02, 2.4, 500
+    THETA_LIMIT = 12 * 2 * math.pi / 360
+
+    def __init__(self, n: int):
+        from types import SimpleNamespace
+        self.num_envs = n
+        self.single_observation_space = SimpleNamespace(shape=(4,))
+        self.single_action_space = SimpleNamespace(n=2)
+        self.rng = np.random.default_rng()
+        self.state = np.zeros((n, 4))
+        self.steps = np.zeros(n, np.int64)
+        self.autoreset = np.zeros(n, bool)
+
+    def reset(self, seed=None):
+        self.rng = np.random.default_rng(seed)
+        self.state = self.rng.uniform(-0.05, 0.05, (self.num_envs, 4))
+        self.steps[:] = 0
+        self.autoreset[:] = False
+        return self.state.astype(np.float32), {}
+
+    def step(self, actions):
+        total_mass = self.MASSPOLE + self.MASSCART
+        polemass_length = self.MASSPOLE * self.LENGTH
+        x, x_dot, theta, theta_dot = (self.state[:, i].copy()
+                                      for i in range(4))
+        force = np.where(np.asarray(actions) == 1, self.FORCE_MAG,
+                         -self.FORCE_MAG)
+        costheta, sintheta = np.cos(theta), np.sin(theta)
+        temp = (force + polemass_length * np.square(theta_dot) * sintheta
+                ) / total_mass
+        thetaacc = (self.GRAVITY * sintheta - costheta * temp) / (
+            self.LENGTH * (4.0 / 3.0 - self.MASSPOLE * np.square(costheta)
+                           / total_mass))
+        xacc = temp - polemass_length * thetaacc * costheta / total_mass
+        x = x + self.TAU * x_dot
+        x_dot = x_dot + self.TAU * xacc
+        theta = theta + self.TAU * theta_dot
+        theta_dot = theta_dot + self.TAU * thetaacc
+        stepped = np.stack([x, x_dot, theta, theta_dot], axis=1)
+        terms = ((x < -self.X_LIMIT) | (x > self.X_LIMIT)
+                 | (theta < -self.THETA_LIMIT) | (theta > self.THETA_LIMIT))
+        self.steps += 1
+        truncs = self.steps >= self.MAX_STEPS
+        rewards = np.ones(self.num_envs)
+        reset = self.autoreset
+        self.state = np.where(reset[:, None], 0.0, stepped)
+        if reset.any():
+            self.state[reset] = self.rng.uniform(-0.05, 0.05,
+                                                 (int(reset.sum()), 4))
+            self.steps[reset] = 0
+            rewards[reset] = 0.0
+            terms[reset] = False
+            truncs[reset] = False
+        self.autoreset = terms | truncs
+        return (self.state.astype(np.float32), rewards, terms, truncs, {})
 
 
 def smi_line() -> str:
@@ -280,49 +353,65 @@ def max_err(got, want) -> float:
     return (got[fin] - want[fin]).abs().max().item() if fin.any() else 0.0
 
 
-def route(X: np.ndarray, tree: dict, d: int, oblivious: bool) -> np.ndarray:
-    """Level-d node of every sample under the tree's levels above d."""
-    rel = np.zeros(X.shape[0], np.int64)
+def fit_inputs(cfg, X: np.ndarray, g: np.ndarray) -> dict:
+    """The inputs build_tree scores a boosting step's tree from, as the
+    CPU port makes them (candidates, bucket ids, scoring gradients; unit
+    sample and feature weights), in numpy."""
+    import torch
+    from gbrl_tpu_torch.ops import candidates as C
+    from gbrl_tpu_torch.ops import fit as FT
+    Xt, gt = torch.from_numpy(X), torch.from_numpy(g)
+    cand = C.numerical_candidates(cfg, Xt)
+    ones = torch.ones(len(X))
+    build = FT.standardize_l2(gt, ones) if cfg.score == "l2" else gt
+    return dict(Xb=C.bucketize(Xt, cand).numpy(), cand=cand.numpy(),
+                build=build.numpy(), w=ones.numpy(),
+                fw=np.ones(X.shape[1], np.float32))
+
+
+def route(inp: dict, tree: dict, d: int) -> np.ndarray:
+    """Level-d node of every sample under the tree's levels above d (bucket
+    ids against the chosen candidate's first grid position)."""
+    Xb, cand = inp["Xb"], inp["cand"]
+    rel = np.zeros(Xb.shape[0], np.int64)
     for lev in range(d):
         p = (1 << lev) - 1 + rel
         f = np.maximum(tree["feat"][p], 0)
-        go = tree["is_split"][p] & (X[np.arange(X.shape[0]), f]
-                                    > tree["thr"][p])
+        b = np.array([np.flatnonzero(cand[fi] == t)[0] if s else 0
+                      for fi, t, s in zip(f, tree["thr"][p],
+                                          tree["is_split"][p])])
+        go = tree["is_split"][p] & (Xb[np.arange(Xb.shape[0]), f] > b)
         rel = 2 * rel + go
     return rel
 
 
-def level_rows(cfg, X, g, tree, d):
+def level_rows(cfg, inp: dict, tree: dict, d: int):
     """The level-d candidate scores of the CPU port's scorer (K3's plain
-    version), given the tree's levels above d: [rows, F * N_BINS] and the
+    version), given the tree's levels above d: [rows, F * n_bins] and the
     parents."""
     import torch
-    from gbrl_tpu_torch.ops import candidates as C
     from gbrl_tpu_torch.ops import fit as FT
     from gbrl_tpu_torch.ops import kernels as K
-    Xt, gt = torch.from_numpy(X), torch.from_numpy(g)
-    f = X.shape[1]
-    cand = C.numerical_candidates(cfg, Xt)
-    Xb = C.bucketize(Xt, cand)
+    B, f = cfg.n_bins, inp["Xb"].shape[1]
     n_nodes = 1 << d
-    rel = torch.from_numpy(route(X, tree, d, cfg.oblivious).astype(np.int32))
-    build = FT.standardize_l2(gt, torch.ones(len(X))) if cfg.score == "l2" \
-        else gt
-    nd = FT._node_expand(rel, build, torch.ones(len(X)), n_nodes)
-    hist = K.level_histogram_plain(Xb, nd, N_BINS + 1)
-    blocked = torch.zeros((n_nodes, f, N_BINS), dtype=torch.bool)
+    rel = torch.from_numpy(route(inp, tree, d).astype(np.int32))
+    nd = FT._node_expand(rel, torch.from_numpy(inp["build"]),
+                         torch.from_numpy(inp["w"]), n_nodes)
+    hist = K.level_histogram_plain(torch.from_numpy(inp["Xb"]), nd, B + 1)
+    blocked = torch.zeros((n_nodes, f, B), dtype=torch.bool)
     rows, _, _, parent, _ = K.level_score_rows(
-        hist, blocked, torch.ones(f), N_BINS, O, cfg.score,
-        cfg.min_data_in_leaf, cfg.oblivious, d == 0)
-    return rows.numpy(), parent.numpy(), cand.numpy()
+        hist, blocked, torch.from_numpy(inp["fw"]), B, cfg.output_dim,
+        cfg.score, cfg.min_data_in_leaf, cfg.oblivious, d == 0)
+    return rows.numpy(), parent.numpy()
 
 
-def compare_trees(label: str, cfg, X, g, card: dict, cpu: dict) -> int:
-    """Hold one tree fitted on the card against the CPU port's tree on the
-    same inputs: feat, is_split, thr and depth equal and leaf values within
-    RTOL / ATOL; or else a near tie at the first level that differs (every
-    differing node's two choices score within TIE_RTOL of each other, or of
-    not splitting), which is printed.  Returns 1 for a near tie."""
+def compare_trees(label: str, cfg, inp: dict, card: dict, cpu: dict) -> int:
+    """Hold one tree fitted on the card against another fit of the same
+    step (the CPU port's, or the other tree path's): feat, is_split, thr
+    and depth equal and leaf values within RTOL / ATOL; or else a near tie
+    at the first level that differs (every differing node's two choices
+    score within TIE_RTOL of each other, or of not splitting, on ``inp``,
+    the step's fit inputs), which is printed.  Returns 1 for a near tie."""
     import torch
     D = cfg.max_depth
     for d in range(D):
@@ -338,7 +427,8 @@ def compare_trees(label: str, cfg, X, g, card: dict, cpu: dict) -> int:
         err = max_err(got, want)
         assert err <= close_limit(want), f"{label}: leaf values err {err}"
         return 0
-    rows, parent, cand = level_rows(cfg, X, g, cpu, d)
+    rows, parent = level_rows(cfg, inp, cpu, d)
+    cand, B = inp["cand"], cfg.n_bins
 
     def score(tree, p, k):
         r = 0 if cfg.oblivious else k
@@ -346,7 +436,7 @@ def compare_trees(label: str, cfg, X, g, card: dict, cpu: dict) -> int:
             return 0.0 if not cfg.oblivious else float("-inf")
         f = int(tree["feat"][p])
         b = int(np.flatnonzero(cand[f] == tree["thr"][p])[0])
-        return float(rows[r, f * N_BINS + b])
+        return float(rows[r, f * B + b])
 
     for k in range(1 << d):
         p = (1 << d) - 1 + k
@@ -466,8 +556,8 @@ def phase_fit_parity(rng, dev):
                     assert K.launch_counts[name] == before[name] + n, \
                         f"F={f} depth={depth}: {name} not launched {n}x"
             trees.append({k: v.cpu().numpy() for k, v in tree.items()})
-        ties = compare_trees(f"wide tree F={f} depth={depth}", cfg, Xw, gw,
-                             *trees)
+        ties = compare_trees(f"wide tree F={f} depth={depth}", cfg,
+                             fit_inputs(cfg, Xw, gw), *trees)
         print(f"  build_tree F={f} depth={depth}: K1 once, K2/K3 {depth}x on "
               f"the card; tree equal to the CPU port's"
               + (" up to a near tie" if ties else ""))
@@ -514,7 +604,8 @@ def phase_training(rng, dev) -> dict:
             TRAIN_STEPS
         cfg = models[1].learner.cfg
         for t, (Xs, g) in enumerate(batches):
-            ties += compare_trees(f"{policy} step {t}", cfg, Xs, g,
+            ties += compare_trees(f"{policy} step {t}", cfg,
+                                  fit_inputs(cfg, Xs, g),
                                   tree_of(arrs[0], t), tree_of(arrs[1], t))
         print(f"  shared {policy}: {TRAIN_STEPS} steps, launches K1 "
               f"{got['bucketize']}, K2 {got['level_histogram']}, K3 "
@@ -586,6 +677,21 @@ def fit_bounds(name: str, a) -> tuple:
     """(bytes, operations) one call must at least move and do: each input
     read once, each output written once; FLOPS_PER_INSTR per compare, add,
     multiply, division or square root, counted for this call's data."""
+    if name == "tree_build":
+        # per level: one add per nonzero (sample, column) for each feature,
+        # the prefix sums, the scores and argmax of each node's candidates
+        # and one routing compare per sample; then the leaf adds
+        Xb, cand, fw, bgw, wg, depth, nb, o = a[:8]
+        n, f = Xb.shape
+        k = o + 1
+        nodes = (1 << depth) - 1
+        ops = (depth * int((bgw != 0).sum().item()) * f
+               + nodes * f * k * (nb + 1) + nodes * f * nb * (5 * o + 9)
+               + depth * n + int((wg != 0).sum().item()))
+        nbytes = (4 * (n * f + f * nb + f + 2 * n * k)
+                  + depth * NPMAX * (4 + 1 + 4 * (o + 3))
+                  + 4 * (1 << depth) * k)
+        return nbytes, ops * FLOPS_PER_INSTR
     if name == "bucketize":
         # a search of an ascending grid needs ceil(log2(B + 1)) compares
         X, cand = a
@@ -762,6 +868,436 @@ def phase_fit_times(rng, dev, args: dict, errs: dict, launches: dict):
     print("  (level_histogram and level_score: sums over one tree's "
           f"{DEPTH} levels)")
     return kernels
+
+
+# ================================================= whole tree (K6) and RL
+# the PPO minibatch shape (examples/ppo_cartpole.py: 512 rows of CartPole's
+# 4 features) and the bench shape at which K6 is held and timed
+PPO_N, PPO_F = 512, 4
+TREE_SHAPES = ((PPO_N, PPO_F), (N, F))
+NPMAX = 8               # nodes per level K6 takes (depth <= 4)
+# examples/ppo_cartpole.py: 16 envs x 256 steps, minibatches of 512, 4
+# epochs -> 32 trees per update phase
+PPO_ENVS, PPO_STEPS, PPO_BATCH, PPO_EPOCHS = 16, 256, 512, 4
+PHASE_TREES = PPO_EPOCHS * PPO_ENVS * PPO_STEPS // PPO_BATCH
+PPO_PHASES = 5          # update phases per PPO.learn run (phase 10)
+# examples/a2c_vs_ref.py: 16 envs x 64 steps, one tree per iteration
+A2C_ENVS, A2C_STEPS, A2C_ITERS = 16, 64, 20
+TIMED_PHASES, PHASE_WARMUP = 12, 2   # update phases timed per path (12)
+K6_RTOL = 1e-6          # K6 vs its plain version: values within 1e-6 of scale
+
+
+@contextlib.contextmanager
+def tree_path(k6: bool):
+    """build_tree on the whole-tree path (one K6 launch per tree) or on the
+    level path (K2 + K3 per level, the default)."""
+    from gbrl_tpu_torch.ops import fit as FT
+    FT._DISABLE_FUSED_TREE = not k6
+    try:
+        yield
+    finally:
+        FT._DISABLE_FUSED_TREE = True
+
+
+@contextlib.contextmanager
+def recorded_fits(module):
+    """Record the inputs of every ``build_tree`` call that ``module`` makes,
+    as numpy (for the near-tie check of trees that differ); yields the
+    list.  The copies to the host wait for the card, so runs that are timed
+    or counted for synchronisations do not use this."""
+    calls = []
+    real = module.build_tree
+
+    def record(cfg, Xb, cand, grads, build, w, fw, *rest):
+        calls.append(dict(Xb=Xb.cpu().numpy(), cand=cand.cpu().numpy(),
+                          build=build.cpu().numpy(), w=w.cpu().numpy(),
+                          fw=fw.cpu().numpy()))
+        return real(cfg, Xb, cand, grads, build, w, fw, *rest)
+
+    module.build_tree = record
+    try:
+        yield calls
+    finally:
+        module.build_tree = real
+
+
+def tree_inputs(rng, dev, n: int, f: int, masked: bool, zero_fw: bool):
+    """K6's arguments at one shape: bucket ids of normal observations (a
+    column with repeated values) against their quantile grid, feature
+    weights, and the weighted scoring and raw gradient rows (grads * w | w),
+    with a fifth of the sample weights 0 when ``masked``."""
+    import torch
+    from gbrl_tpu_torch.ops import candidates as C
+    from gbrl_tpu_torch.ops import fit as FT
+    X = rng.normal(size=(n, f)).astype(np.float32)
+    X[: n // 8, 0] = 0.25
+    w = ((rng.random(n) > 0.2) if masked else np.ones(n)).astype(np.float32)
+    fw = rng.uniform(0.5, 1.5, f).astype(np.float32)
+    if zero_fw:
+        fw[1] = 0.0
+    Xd, wd, fwd = (torch.from_numpy(a).to(dev) for a in (X, w, fw))
+    gs = [torch.from_numpy(rng.normal(size=(n, O)).astype(np.float32)).to(dev)
+          for _ in range(2)]
+    cand = C.numerical_candidates(fit_config(f), Xd)
+    return (C.bucketize(Xd, cand), cand, fwd, FT._weighted_rows(gs[0], wd),
+            FT._weighted_rows(gs[1], wd))
+
+
+def phase_tree_parity(rng, dev):
+    """Phase 9: K6 against its plain version on the card (indices equal,
+    values within K6_RTOL of scale, the same bits on two launches), then
+    build_tree's K6 path against its level path on the same inputs.
+    Returns K6's arguments at the two shapes and its max abs error."""
+    import torch
+    from gbrl_tpu_torch.ops import candidates as C
+    from gbrl_tpu_torch.ops import fit as FT
+    from gbrl_tpu_torch.ops import kernels as K
+    print("[9 tree parity]", flush=True)
+    cases = [(n, f, DEPTH, obl, score, md, md > 0, md > 0)
+             for n, f in TREE_SHAPES for obl in (False, True)
+             for score in ("cosine", "l2") for md in (0, 20)]
+    cases += [(700, PPO_F, DEPTH, False, "cosine", 0, True, True)]
+    cases += [(PPO_N, PPO_F, d, obl, "l2", 20, True, False)
+              for d in (1, 2, 3) for obl in (False, True)]
+    args, err = {}, 0.0
+    for n, f, depth, obl, score, md, masked, zero_fw in cases:
+        a = tree_inputs(rng, dev, n, f, masked, zero_fw) + (
+            depth, N_BINS, O, score, md, obl)
+        got = K.tree_build_cuda(*a)
+        again = K.tree_build_cuda(*a)
+        want = K.tree_build_plain(*a, K._tree_tiling(n, f)[0])
+        torch.cuda.synchronize()
+        label = (f"K6 N={n} F={f} depth={depth} "
+                 f"{'oblivious' if obl else 'greedy'} {score} min_data={md}"
+                 f"{' masked w' if masked else ''}"
+                 f"{' zero fw' if zero_fw else ''}")
+        for x, y in zip(got, again):
+            assert torch.equal(x, y), f"{label}: two launches differ"
+        for x, y in zip(got[:2], want[:2]):
+            assert torch.equal(x, y), f"{label}: choices differ from plain"
+        e = max(max_err(x, y) for x, y in zip(got[2:], want[2:]))
+        lim = K6_RTOL * max(y[torch.isfinite(y)].abs().max().item()
+                            for y in want[2:])
+        assert e <= lim, f"{label}: values err {e} > {lim}"
+        err = max(err, e)
+        if ((obl, score, md) == (False, "cosine", 0) and depth == DEPTH
+                and (n, f) in TREE_SHAPES):
+            args[(n, f)] = a
+    print(f"  K6 on {len(cases)} cases (greedy/oblivious x cosine/l2 x "
+          f"min_data 0/20 at N={PPO_N} F={PPO_F} and N={N} F={F}; masked "
+          f"weights, a zero feature weight, N=700, depths 1-3): choices "
+          f"equal to the plain version, values max abs err {err:.3g}, the "
+          f"same bits on two launches")
+    for n, f in TREE_SHAPES:
+        cfg_x = rng.normal(size=(n, f)).astype(np.float32)
+        g = rng.normal(size=(n, O)).astype(np.float32)
+        for policy in ("greedy", "oblivious"):
+            cfg = fit_config(f, DEPTH, policy)
+            Xt, gt = (torch.from_numpy(x).to(dev) for x in (cfg_x, g))
+            cand = C.numerical_candidates(cfg, Xt)
+            Xb = C.bucketize(Xt, cand)
+            trees = []
+            for k6 in (True, False):
+                before = K.launch_counts["tree_build"]
+                with tree_path(k6):
+                    t = FT.build_tree(cfg, Xb, cand, gt, gt,
+                                      torch.ones(n, device=dev),
+                                      torch.ones(f, device=dev))
+                torch.cuda.synchronize()
+                assert K.launch_counts["tree_build"] == before + int(k6)
+                trees.append({k: v.cpu().numpy() for k, v in t.items()})
+            ties = compare_trees(f"K6 path vs level path N={n} {policy}",
+                                 cfg, fit_inputs(cfg, cfg_x, g), *trees)
+            print(f"  build_tree N={n} F={f} {policy}: the K6 path's tree "
+                  f"equal to the level path's"
+                  + (" up to a near tie" if ties else ""))
+    return args, err
+
+
+def new_ppo():
+    from gbrl_tpu_torch.rl import PPO
+    return PPO(VecCartPole(PPO_ENVS),
+               tree_struct=dict(max_depth=DEPTH, n_bins=N_BINS,
+                                min_data_in_leaf=0, par_th=2,
+                                grow_policy="greedy"),
+               policy_lr=0.17, value_lr=0.01, n_steps=PPO_STEPS,
+               batch_size=PPO_BATCH, n_epochs=PPO_EPOCHS, ent_coef=0.0,
+               device="cuda")
+
+
+def ppo_hyper():
+    from gbrl_tpu_torch.rl.jit_update import PPOHyper
+    return PPOHyper(n_actions=2, clip_range=0.2, ent_coef=0.0, vf_coef=0.5,
+                    normalize_advantage=True, policy_clip=0.0, value_clip=0.0)
+
+
+def compare_phase(label: str, cfg, a: dict, b: dict, fits: list,
+                  nt0: int, n: int) -> str:
+    """Hold trees [nt0, nt0 + n) of two ensembles (numpy dicts) fit from
+    one state and rollout against each other, tree by tree (``fits`` the
+    recorded inputs of ``a``'s fits).  A near tie is printed and ends the
+    comparison: each tree's gradients depend on the trees before it, so the
+    trees after one follow another ensemble."""
+    for u in range(n):
+        if compare_trees(f"{label} tree {u}", cfg, fits[u],
+                         tree_of(a, nt0 + u), tree_of(b, nt0 + u)):
+            return (f"trees 0-{u - 1} equal, tree {u} a near tie (later "
+                    f"trees follow another ensemble)")
+    return f"all {n} trees equal"
+
+
+def phase_ppo(rng, dev, seed: int) -> dict:
+    """Phase 10: PPO.learn on the card on both tree paths, then one update
+    phase from one state and rollout on the card (K6 path, level path) and
+    on the CPU port, with its launch counts and its determinism.  Returns
+    what phase 12 reuses."""
+    import torch
+    from gbrl_tpu_torch import SharedActorCriticLearner
+    from gbrl_tpu_torch.ensemble import ensemble_to_numpy
+    from gbrl_tpu_torch.ops import kernels as K
+    from gbrl_tpu_torch.rl import jit_update as JU
+    print("[10 PPO]", flush=True)
+    steps = PPO_PHASES * PPO_ENVS * PPO_STEPS
+    runs = {}
+    for path in ("level", "k6"):
+        algo = new_ppo()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        with tree_path(path == "k6"):
+            algo.learn(steps, seed=seed)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = dict(K.launch_counts)
+        trees = algo.model.get_num_trees()
+        assert trees == PPO_PHASES * PHASE_TREES, trees
+        rewards = np.asarray(algo.episode_rewards)
+        assert len(rewards) and np.isfinite(rewards).all()
+        mirror_c = bool(algo._mirror) and algo._mirror.uses_c_library
+        assert mirror_c, "the mirror's C library did not serve the rollout"
+        print(f"  PPO.learn {path} path: {steps} env steps, {trees} trees, "
+              f"{len(rewards)} episodes with finite rewards, mean-100 "
+              f"{algo.mean_reward():.2f}, rollouts served by the mirror's C "
+              f"library: {mirror_c}; {secs:.2f} s; launches {counts}")
+        fits = trees if path == "k6" else 0
+        assert counts["tree_build"] == fits, counts
+        assert counts["bucketize"] == trees, counts
+        assert counts["level_histogram"] == counts["level_score"] == (
+            0 if path == "k6" else DEPTH * trees), counts
+        assert counts["weighted_leaf_sum"] >= PPO_PHASES, counts
+        runs[path] = (algo, counts)
+    algo = runs["level"][0]
+    obs, act, old_lp, adv, ret, _, valid = algo._buffers[0].flat()
+    tmp = tempfile.mkdtemp()
+    path = os.path.join(tmp, "ppo_state")
+    algo.model.learner.save(path)
+    cfg = algo.model.learner.cfg
+
+    def one_phase(device: str, k6: bool):
+        lr = SharedActorCriticLearner.load(path, device)
+        nt0 = lr.get_num_trees()
+        K.reset_launch_counts()
+        with tree_path(k6), recorded_fits(JU) as fits:
+            JU.run_ppo_update(lr, obs, act, old_lp, adv, ret, ppo_hyper(),
+                              PPO_EPOCHS, PPO_BATCH,
+                              np.random.default_rng(seed), valid=valid)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        return ensemble_to_numpy(lr.ens), nt0, fits, dict(K.launch_counts)
+
+    cpu, nt0, _, _ = one_phase("cpu", False)
+    for label, k6 in (("K6 path", True), ("level path", False)):
+        card, _, fits, counts = one_phase("cuda", k6)
+        want = ((PHASE_TREES, 0, 0) if k6
+                else (0, DEPTH * PHASE_TREES, DEPTH * PHASE_TREES))
+        got = (counts["tree_build"], counts["level_histogram"],
+               counts["level_score"])
+        assert got == want and counts["bucketize"] == PHASE_TREES, counts
+        verdict = compare_phase(f"PPO phase {label} vs CPU", cfg, card, cpu,
+                                fits, nt0, PHASE_TREES)
+        again = one_phase("cuda", k6)[0]
+        for k in card:
+            assert np.array_equal(card[k], again[k]), \
+                f"{label}: two update phases differ in {k}"
+        print(f"  one update phase on the card, {label}: launches K1 "
+              f"{counts['bucketize']}, K2 {counts['level_histogram']}, K3 "
+              f"{counts['level_score']}, K6 {counts['tree_build']}; against "
+              f"the CPU port: {verdict}; run twice: identical ensembles")
+    return dict(state=path, cfg=cfg, rollout=(obs, act, old_lp, adv, ret,
+                                              valid),
+                algo=algo, k6_launches=runs["k6"][1]["tree_build"])
+
+
+def phase_a2c(rng, dev, seed: int) -> None:
+    """Phase 11: A2C.learn on the card on both tree paths, then one
+    run_a2c_update on the card against the CPU port."""
+    import torch
+    from gbrl_tpu_torch import SharedActorCriticLearner
+    from gbrl_tpu_torch.ensemble import ensemble_to_numpy
+    from gbrl_tpu_torch.ops import kernels as K
+    from gbrl_tpu_torch.rl import A2C
+    from gbrl_tpu_torch.rl import jit_a2c as JA
+    from gbrl_tpu_torch.utils.host_mirror import HostMirror
+    print("[11 A2C]", flush=True)
+    algos = {}
+    for path in ("level", "k6"):
+        algo = A2C(VecCartPole(A2C_ENVS),
+                   tree_struct=dict(max_depth=DEPTH, n_bins=N_BINS,
+                                    min_data_in_leaf=0, par_th=2,
+                                    grow_policy="oblivious"),
+                   policy_lr=0.05, value_lr=0.01, policy_algo="Adam",
+                   n_steps=A2C_STEPS, ent_coef=0.01, control_variates=True,
+                   device="cuda")
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        with tree_path(path == "k6"):
+            algo.learn(A2C_ITERS * A2C_ENVS * A2C_STEPS, seed=seed)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = dict(K.launch_counts)
+        assert algo.model.get_num_trees() == A2C_ITERS
+        rewards = np.asarray(algo.episode_rewards)
+        assert len(rewards) and np.isfinite(rewards).all()
+        assert counts["tree_build"] == (A2C_ITERS if path == "k6" else 0)
+        assert counts["level_score"] == (0 if path == "k6"
+                                         else DEPTH * A2C_ITERS), counts
+        assert counts["oblivious_leaf_sum"] > 0, counts
+        print(f"  A2C.learn {path} path: {A2C_ITERS} iterations, "
+              f"{A2C_ITERS} trees, mean-100 {algo.mean_reward():.2f}, "
+              f"mirror C library {algo._mirror.uses_c_library}; {secs:.2f} "
+              f"s; launches {counts}")
+        algos[path] = algo
+    # one update from one state and a rollout of CartPole states
+    env = VecCartPole(A2C_ENVS * A2C_STEPS)
+    obs, _ = env.reset(seed=seed)
+    for _ in range(20):
+        obs, *_ = env.step(rng.integers(0, 2, env.num_envs))
+    n = len(obs)
+    act = rng.integers(0, 2, n)
+    adv, ret = (rng.normal(size=n).astype(np.float32) for _ in range(2))
+    valid = (rng.random(n) > 0.05).astype(np.float32)
+    path = os.path.join(tempfile.mkdtemp(), "a2c_state")
+    algos["level"].model.learner.save(path)
+    hp = JA.A2CHyper(n_actions=2, ent_coef=0.01, vf_coef=0.5,
+                     normalize_advantage=True)
+    out = []
+    for device in ("cuda", "cpu"):
+        lr = SharedActorCriticLearner.load(path, device)
+        mirror = HostMirror(lr)
+        with recorded_fits(JA) as fits:
+            stats = JA.run_a2c_update(lr, obs, act, adv, ret, valid, hp,
+                                      mirror=mirror)
+        out.append((ensemble_to_numpy(lr.ens), stats, fits, mirror))
+    (card, s_card, fits, m_card), (cpu, s_cpu, _, m_cpu) = out
+    nt = int(cpu["n_trees"]) - 1
+    ties = compare_trees("A2C update vs CPU", algos["level"].model.learner.cfg,
+                         fits[0], tree_of(card, nt), tree_of(cpu, nt))
+    for k in s_cpu:
+        assert abs(s_card[k] - s_cpu[k]) <= FIT_LOSS_RTOL * max(
+            abs(s_cpu[k]), 1e-3), (k, s_card[k], s_cpu[k])
+    X = obs[:512]
+    check_close("A2C mirrors after the update (card learner vs CPU)",
+                torch.from_numpy(m_card.predict(X)),
+                torch.from_numpy(m_cpu.predict(X)))
+    print(f"  run_a2c_update (Adam policy, control variates, oblivious): the "
+          f"card's tree equal to the CPU port's"
+          + (" up to a near tie" if ties else "")
+          + f"; stats {s_card} vs {s_cpu}")
+
+
+def phase_rl_times(rng, dev, ppo: dict, tree_args: dict, tree_err: float):
+    """Phase 12: the update phase's wall time on both tree paths, in turns;
+    trees/s; host synchronisations; the rollout's env steps/s; the device's
+    busy share of an update phase; K6's times.  Returns K6's JSON entry."""
+    import torch
+    from gbrl_tpu_torch import SharedActorCriticLearner
+    from gbrl_tpu_torch.ensemble import ensure_capacity
+    from gbrl_tpu_torch.ops import kernels as K
+    from gbrl_tpu_torch.rl import jit_update as JU
+    from gbrl_tpu_torch.rl.buffers import RolloutBuffer
+    print("[12 RL times]", flush=True)
+    obs, act, old_lp, adv, ret, valid = ppo["rollout"]
+    lr = SharedActorCriticLearner.load(ppo["state"], "cuda")
+    nt0 = lr.get_num_trees()
+    lr.ens = ensure_capacity(lr.ens, nt0 + PHASE_TREES)
+    ens0 = lr.ens
+    hp = ppo_hyper()
+
+    def phase(k6: bool):
+        lr.ens, lr._rl_host_n_trees = ens0, nt0
+        with tree_path(k6):
+            JU.run_ppo_update(lr, obs, act, old_lp, adv, ret, hp, PPO_EPOCHS,
+                              PPO_BATCH, np.random.default_rng(1),
+                              valid=valid)
+
+    times = {True: [], False: []}
+    for i in range(TIMED_PHASES):
+        for k6 in ((True, False) if i % 2 == 0 else (False, True)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            phase(k6)
+            torch.cuda.synchronize()
+            if i >= PHASE_WARMUP:
+                times[k6].append((time.perf_counter() - t0) * 1e3)
+    for k6, ts in times.items():
+        p50, p90 = np.percentile(ts, [50, 90])
+        print(f"  PPO update phase ({PHASE_TREES} trees, rollout "
+              f"{len(obs)} rows) {'K6 path' if k6 else 'level path'}: p50 "
+              f"{p50:.4f} ms p90 {p90:.4f} ms (n={len(ts)}, the two paths "
+              f"in turns); {PHASE_TREES / p50 * 1e3:.1f} trees/s at the p50")
+    # host synchronisations: the loop alone, and the whole host wrapper
+    mb_idx, mb_n = JU.minibatch_plan(len(obs), PPO_EPOCHS, PPO_BATCH,
+                                     np.random.default_rng(1))
+    Xn, _ = lr._prepare(obs, grow_vocab=False)
+    d = [torch.from_numpy(np.asarray(a)).to(dev) for a in
+         (mb_idx, act, old_lp, adv, ret, valid)]
+    fw = lr._internal_feature_weights()
+    for k6 in (True, False):
+        with tree_path(k6):
+            n_loop = sync_count(lambda: JU.ppo_update_loop(
+                lr.cfg, hp, len(mb_n), ens0, Xn, d[0], mb_n.tolist(), d[1],
+                d[2], d[3], d[4], lr.specs, fw, nt0, d[5]))
+        n_run = sync_count(lambda: phase(k6))
+        print(f"  host synchronisations, {'K6' if k6 else 'level'} path: "
+              f"{n_loop} inside ppo_update_loop, {n_run} per run_ppo_update")
+    # rollout: env steps per second with the host mirror serving
+    algo = ppo["algo"]
+    buf = RolloutBuffer(PPO_STEPS, PPO_ENVS, 4, algo.gamma, algo.gae_lambda)
+    o, _ = algo.env.reset(seed=7)
+    dn = np.zeros(PPO_ENVS, np.float32)
+    r = np.random.default_rng(7)
+    secs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        o, dn = algo.collect_rollout(buf, o, dn, r)
+        secs.append(time.perf_counter() - t0)
+    print(f"  rollout: {PPO_ENVS * PPO_STEPS / np.median(secs):.0f} env "
+          f"steps/s (median of 3 rollouts of {PPO_ENVS} x {PPO_STEPS} "
+          f"steps, {algo.model.get_num_trees()} trees in the mirror)")
+    for k6 in (True, False):
+        print(f"  {'K6' if k6 else 'level'} path:")
+        profile_requests(lambda: phase(k6), n=3, what="update phase")
+    # K6 at the minibatch and the bench shape
+    entry = None
+    for (n, f), a in tree_args.items():
+        tile = K._tree_tiling(n, f)[0]
+        ms = cuda_ms(lambda: K.tree_build_cuda(*a), KERNEL_REPS)
+        pms = cuda_ms(lambda: K.tree_build_plain(*a, tile), 3, warmup=1)
+        nbytes, ops = fit_bounds("tree_build", a)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+        bms = max(t_bytes, t_ops) * 1e3
+        by = "bytes" if t_bytes >= t_ops else "operations"
+        print(f"  tree_build N={n} F={f}: {ms:.5f} ms | plain {pms:.5f} ms | "
+              f"library none | bound {bms:.7f} ms ({by})")
+        if (n, f) == (PPO_N, PPO_F):
+            entry = dict(name="tree_build", route="cuda",
+                         source="gbrl_tpu_torch/csrc/tree.cu",
+                         replaces=REPLACES["tree_build"],
+                         launches=ppo["k6_launches"], max_abs_err=tree_err,
+                         ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
+                         library_ms=None)
+    print(f"  (the kernels line reports K6 at the PPO minibatch shape "
+          f"N={PPO_N} F={PPO_F}; launches from phase 10's K6-path run)")
+    return entry
 
 
 def main() -> int:
@@ -952,6 +1488,10 @@ def main() -> int:
     fit_args, fit_err = phase_fit_parity(rng, dev)
     fit_launches = phase_training(rng, dev)
     kernels += phase_fit_times(rng, dev, fit_args, fit_err, fit_launches)
+    tree_args, tree_err = phase_tree_parity(rng, dev)
+    ppo = phase_ppo(rng, dev, args.seed)
+    phase_a2c(rng, dev, args.seed)
+    kernels.append(phase_rl_times(rng, dev, ppo, tree_args, tree_err))
 
     print(smi)
     print(json.dumps({"kernels": kernels}))

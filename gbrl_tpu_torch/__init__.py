@@ -5,10 +5,13 @@ A port of ``gbrl_tpu`` (the JAX/Pallas package, kept as the reference).
 It imports ``torch`` and ``numpy`` only, never ``jax`` or ``gbrl_tpu``.
 Every entry point takes ``device`` ("cuda" by default); asking for "cuda"
 without a card raises.  It fits trees (``step``, ``fit``, ``distil``)
-through the K1-K3 fit kernels (``csrc/fit.cu``) and serves predictions
-through the K4/K5 predict kernels (``csrc/predict.cu``), all wrapped in
-``ops/kernels.py``; the RL loops, SHAP and export come with later slices
-(ROADMAP.md).
+through the K1-K3 fit kernels (``csrc/fit.cu``) or, on the whole-tree path
+(``ops.fit._DISABLE_FUSED_TREE = False``), one K6 launch per tree
+(``csrc/tree.cu``); it serves predictions through the K4/K5 predict
+kernels (``csrc/predict.cu``), all wrapped in ``ops/kernels.py``.  ``rl``
+trains PPO and A2C on the card, their rollouts served by a host mirror of
+the ensemble (``utils/host_mirror.py``, ``csrc/mirror.c``).  AWR, SAC, SHAP
+and export come with later slices (ROADMAP.md).
 """
 import torch as _torch
 

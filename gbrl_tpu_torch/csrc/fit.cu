@@ -55,17 +55,17 @@
 //             the row's max, then the first index within the 2e-6 relative
 //             band (the parent score in the band's base).  Max and min are
 //             exact in any order, so the argmax is deterministic.
-//   The order of operations is the JAX package's where it decides the
-//   result: s * w before the blocked mask, parent 0 at the root, the node
-//   sum before NaN -> -inf.  Products that feed a sum use __fmul_rn /
-//   __fadd_rn so nvcc does not contract them into FMAs: the kernel then
-//   repeats its plain PyTorch version's arithmetic bit for bit.
+//   Both steps are the device functions of score.cuh, which K6 (tree.cu)
+//   runs too; their arithmetic repeats the plain PyTorch version's bit for
+//   bit.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -Xcompiler -fPIC
 // (no fast-math: IEEE division and sqrtf).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "score.cuh"
 
 namespace {
 
@@ -75,10 +75,7 @@ constexpr int K2_THREADS = 64;     // (f, c) pairs per pass-1 block
 constexpr int K2_REDUCE_THREADS = 256;
 constexpr int K3_THREADS = 256;
 
-int set_smem(const void* kernel, size_t bytes) {
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
+using gbrl::set_smem;
 
 // ------------------------------------------------------------------- K1
 __global__ void __launch_bounds__(K1_THREADS)
@@ -158,42 +155,6 @@ level_hist_reduce_kernel(const float* __restrict__ part,
 }
 
 // ------------------------------------------------------------------- K3
-__device__ __forceinline__ float block_max(float v, float* sh) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
-  if (l == 0) sh[w] = v;
-  __syncthreads();
-  if (w == 0) {
-    v = l < (int)(blockDim.x >> 5) ? sh[l] : -INFINITY;
-    for (int o = 16; o > 0; o >>= 1)
-      v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-    if (l == 0) sh[0] = v;
-  }
-  __syncthreads();
-  v = sh[0];
-  __syncthreads();
-  return v;
-}
-
-__device__ __forceinline__ int block_min(int v, int* sh) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = min(v, __shfl_xor_sync(0xffffffffu, v, o));
-  const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
-  if (l == 0) sh[w] = v;
-  __syncthreads();
-  if (w == 0) {
-    v = l < (int)(blockDim.x >> 5) ? sh[l] : 0x7fffffff;
-    for (int o = 16; o > 0; o >>= 1)
-      v = min(v, __shfl_xor_sync(0xffffffffu, v, o));
-    if (l == 0) sh[0] = v;
-  }
-  __syncthreads();
-  v = sh[0];
-  __syncthreads();
-  return v;
-}
-
 // stats[node] = (node gradient sums [O], node count, parent score)
 __global__ void __launch_bounds__(K3_THREADS)
 level_score_kernel(const float* __restrict__ hist,
@@ -203,73 +164,10 @@ level_score_kernel(const float* __restrict__ hist,
                    int cosine, float min_data, int oblivious, int is_root) {
   extern __shared__ float sm[];
   const int f = blockIdx.x, node = blockIdx.y, n_nodes = gridDim.y;
-  const int K = O + 1;
-  const size_t C = (size_t)n_nodes * K;
-  float* cs = sm;             // [K][NB] prefix sums of this feature
-  float* tot = sm + K * NB;   // [K] node totals (feature 0's full prefix)
-  for (int r = threadIdx.x; r < 2 * K; r += blockDim.x) {
-    const bool own = r < K;
-    const int o = own ? r : r - K;
-    const float* h = hist + ((size_t)(own ? f : 0) * C + (size_t)node * K + o) * NB;
-    float acc = 0.0f;
-    if (own) {
-      for (int b = 0; b < NB; ++b) {
-        acc = __fadd_rn(acc, h[b]);
-        cs[o * NB + b] = acc;
-      }
-    } else {
-      for (int b = 0; b < NB; ++b) acc = __fadd_rn(acc, h[b]);
-      tot[o] = acc;
-    }
-  }
-  __syncthreads();
-  const float ct = tot[O];
-  float sq = 0.0f;
-  for (int o = 0; o < O; ++o) sq = __fadd_rn(sq, __fmul_rn(tot[o], tot[o]));
-  float p = ct > 0.0f ? sq / ct : 0.0f;
-  if (cosine) p = p > 0.0f ? sqrtf(p) : 0.0f;
-  const float parent = is_root ? 0.0f : p;
-  if (f == 0 && threadIdx.x == 0) {
-    float* st = stats + (size_t)node * (O + 2);
-    for (int o = 0; o < O; ++o) st[o] = tot[o];
-    st[O] = ct;
-    st[O + 1] = parent;
-  }
-  const float fw = feat_w[f];
-  const size_t M = (size_t)F * B;
-  for (int b = threadIdx.x; b < B; b += blockDim.x) {
-    const float cl = cs[O * NB + b];
-    const float cr = ct - cl;
-    float l2l = 0.0f, l2r = 0.0f;
-    for (int o = 0; o < O; ++o) {
-      const float lo = cs[o * NB + b];
-      const float ro = tot[o] - lo;
-      l2l = __fadd_rn(l2l, __fmul_rn(lo, lo));
-      l2r = __fadd_rn(l2r, __fmul_rn(ro, ro));
-    }
-    const float sL = cl > 0.0f ? l2l / cl : 0.0f;
-    const float sR = cr > 0.0f ? l2r / cr : 0.0f;
-    float s = __fadd_rn(sL, sR);
-    if (cosine) s = s > 0.0f ? sqrtf(s) : 0.0f;
-    if (min_data > 0.0f && (cl < min_data || cr < min_data)) s = -INFINITY;
-    s = __fmul_rn(s, fw);                     // -inf * 0 -> NaN -> -inf
-    const size_t q = (size_t)f * B + b;
-    if (blocked[(size_t)node * M + q]) s = -INFINITY;
-    if (!oblivious) {
-      s = __fsub_rn(s, parent);
-      if (isnan(s)) s = -INFINITY;
-    }
-    adj[(size_t)node * M + q] = s;
-  }
-}
-
-__device__ __forceinline__ float level_value(const float* __restrict__ adj,
-                                             int node, int n_nodes, size_t M,
-                                             size_t q, int oblivious) {
-  if (!oblivious) return adj[(size_t)node * M + q];
-  float s = 0.0f;
-  for (int n = 0; n < n_nodes; ++n) s = __fadd_rn(s, adj[(size_t)n * M + q]);
-  return isnan(s) ? -INFINITY : s;
+  const uint8_t* blk = blocked + ((size_t)node * F + f) * B;
+  gbrl::score_feature_node(hist, feat_w, adj, stats, f, node, n_nodes, F, O,
+                           NB, B, cosine, min_data, oblivious, is_root, sm,
+                           [&](int b) { return blk[b] != 0; });
 }
 
 __global__ void __launch_bounds__(K3_THREADS)
@@ -281,24 +179,11 @@ level_argmax_kernel(const float* __restrict__ adj,
   __shared__ float shf[32];
   __shared__ int shi[32];
   const int node = blockIdx.x;
-  float m = -INFINITY;
-  for (int q = threadIdx.x; q < M; q += blockDim.x)
-    m = fmaxf(m, level_value(adj, node, n_nodes, M, q, oblivious));
-  m = block_max(m, shf);
-  const float scale =
-      oblivious ? 0.0f : fabsf(stats[(size_t)node * (O + 2) + O + 1]);
-  const float tol = isfinite(m) ? __fmul_rn(__fadd_rn(fabsf(m), scale), 2e-6f)
-                                : 0.0f;
-  const float lim = __fsub_rn(m, tol);
-  int qi = M;
-  for (int q = threadIdx.x; q < M; q += blockDim.x)
-    if (level_value(adj, node, n_nodes, M, q, oblivious) >= lim) {
-      qi = q;
-      break;
-    }
-  qi = block_min(qi, shi);
+  int qi;
+  float v;
+  gbrl::argmax_node(adj, stats, node, n_nodes, M, O, oblivious, shf, shi, &qi,
+                    &v);
   if (threadIdx.x == 0) {
-    const float v = level_value(adj, node, n_nodes, M, qi, oblivious);
     if (oblivious) {
       for (int n = 0; n < n_nodes; ++n) {
         best_idx[n] = qi;
@@ -327,7 +212,7 @@ size_t gbrl_k2_smem_bytes(int br) {
   return sizeof(float) * (size_t)K2_THREADS * br;
 }
 size_t gbrl_k3_smem_bytes(int O, int NB) {
-  return sizeof(float) * ((size_t)(O + 1) * NB + O + 1);
+  return sizeof(float) * gbrl::score_smem_floats(O, NB);
 }
 int gbrl_k2_block_pairs() { return K2_THREADS; }
 

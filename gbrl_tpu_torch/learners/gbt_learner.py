@@ -34,14 +34,22 @@ SAVE_SUFFIX = ".gbrl_model"
 MAX_SINGLE_TREE_UPDATES = 8
 
 
-def _cache_key(arrays) -> bytes:
-    """Exact predict-cache key: blake2b over the shape and every byte (the
-    JAX package's opt-in strided key is not carried over)."""
+def _cache_key(inputs) -> Optional[bytes]:
+    """Exact predict-cache key of a host input (a numpy array, a CPU tensor
+    or a nested list): blake2b over its dtype, shape and every byte; None
+    for inputs that are not keyed (CUDA tensors, whose bytes would have to
+    be copied to the host, and (numeric, categorical) tuples).  The JAX
+    package's opt-in strided key is not carried over."""
+    if isinstance(inputs, tuple) or (is_torch(inputs)
+                                     and inputs.device.type != "cpu"):
+        return None
+    a = np.ascontiguousarray(inputs.detach().numpy() if is_torch(inputs)
+                             else np.asarray(inputs))
+    if a.dtype == object:
+        return None
     h = hashlib.blake2b(digest_size=16)
-    for arr in arrays:
-        a = np.ascontiguousarray(arr)
-        h.update(str(a.shape).encode())
-        h.update(memoryview(a).cast("B"))
+    h.update(f"{a.dtype.str}{a.shape}".encode())
+    h.update(memoryview(a).cast("B"))
     return h.digest()
 
 
@@ -106,6 +114,9 @@ class GBTLearner(BaseLearner):
         self.num_mask = np.ones(input_dim, dtype=bool)   # original-order mask
         self.total_iterations = 0
         self._pred_cache = None   # (input-hash, n_trees, preds) for SGD delta
+        # the RL loops' host copy of n_trees (None: not tracked; the loops
+        # arm it and then own every change to the ensemble while training)
+        self._rl_host_n_trees: Optional[int] = None
 
     # ------------------------------------------------------------------ setup
     def reset(self) -> None:
@@ -117,6 +128,7 @@ class GBTLearner(BaseLearner):
         self._mapping_set = False
         self.total_iterations = 0
         self._pred_cache = None
+        self._rl_host_n_trees = None
 
     def _validate_specs(self) -> None:
         """Column-range validation (reference: gbrl.cpp:452-525)."""
@@ -194,30 +206,28 @@ class GBTLearner(BaseLearner):
         return inputs
 
     def _prepare(self, inputs, grow_vocab: bool):
-        """inputs -> (Xn [N, Fn], Xc codes [N, Fc] | None, host arrays |
-        None): tensors on the learner's device, and the host arrays they
-        were copied from (None for a CUDA input, which is not copied)."""
+        """inputs -> (Xn [N, Fn], Xc codes [N, Fc] | None), tensors on the
+        learner's device (a CUDA input is not copied through the host)."""
         inputs = self._disambiguate_1d(inputs)
         self._infer_mapping_from(inputs)
         if is_torch(inputs) and inputs.device.type != "cpu":
             Xn = inputs.detach().to(self.torch_device, torch.float32)
-            return Xn.reshape(Xn.shape[0], -1).contiguous(), None, None
+            return Xn.reshape(Xn.shape[0], -1).contiguous(), None
         num, cat = preprocess_features(inputs)
         if num is None:
             num = np.zeros((cat.shape[0], 0), dtype=np.float32)
         Xn = torch.from_numpy(num).to(self.torch_device)
         if cat is None or cat.shape[1] == 0:
-            return Xn, None, (num,)
+            return Xn, None
         codes = self.vocab.encode(cat, grow=grow_vocab)
-        return (Xn, torch.from_numpy(codes).to(self.torch_device),
-                (num, codes))
+        return Xn, torch.from_numpy(codes).to(self.torch_device)
 
     # ------------------------------------------------------------------ train
     def step(self, inputs: NumericalData, grads: NumericalData) -> None:
         """One boosting iteration on per-sample gradients (reference:
         gbt_learner.py:105-148 -> GBRL::step -> Fitter::step_cpu)."""
         assert self.ens is not None, "call reset() first"
-        Xn, Xc, _ = self._prepare(inputs, grow_vocab=True)
+        Xn, Xc = self._prepare(inputs, grow_vocab=True)
         n = Xn.shape[0] if Xn.shape[1] > 0 else Xc.shape[0]
         g = self._grads_tensor(grads, n)
         assert g.shape[1] == self.output_dim, \
@@ -228,6 +238,8 @@ class GBTLearner(BaseLearner):
         self.ens = boost_step(self.cfg, self.ens, Xn, g, fw[:n_num], Xc,
                               fw[n_num:], self._n_codes())
         self.total_iterations += 1
+        if self._rl_host_n_trees is not None:
+            self._rl_host_n_trees += 1   # keep the RL host counter exact
 
     def fit(self, features: NumericalData, targets: NumericalData,
             iterations: int, shuffle: bool = True,
@@ -279,6 +291,8 @@ class GBTLearner(BaseLearner):
             torch.from_numpy(yp).to(dev), N, self.specs, fw[:n_num], Xcp,
             fw[n_num:], self._n_codes())
         self._last_fit_losses = per_iter.cpu().numpy()
+        if self._rl_host_n_trees is not None:
+            self._rl_host_n_trees += int(iterations)
         if self.verbose > 0:
             # per-iteration batch loss (fitter.cpp:232-234)
             for i, l in enumerate(self._last_fit_losses):
@@ -305,8 +319,9 @@ class GBTLearner(BaseLearner):
         old_bv = getattr(self, "_bias_version", 0)
         self.__dict__.update(student.__dict__)
         self._pred_cache = None
-        # the ensemble changed wholesale: the bias version moves past
-        # anything a mirror has seen
+        # the ensemble changed wholesale: the RL host counter is disarmed,
+        # and the bias version moves past anything a mirror has seen
+        self._rl_host_n_trees = None
         self._bias_version = max(old_bv,
                                  getattr(student, "_bias_version", 0)) + 1
         return loss, params
@@ -327,11 +342,12 @@ class GBTLearner(BaseLearner):
         would copy it to the host, so a CUDA input is always predicted in
         full (the RL loops pass host arrays)."""
         assert self.ens is not None, "call reset() first"
-        Xn, Xc, host = self._prepare(inputs, grow_vocab=False)
-        cacheable = (host is not None and (start_idx in (0, None))
-                     and (stop_idx in (None, 0)) and Xc is None
-                     and all(s.algo == "SGD" for s in self.specs))
-        key = _cache_key(host) if cacheable else None
+        Xn, Xc = self._prepare(inputs, grow_vocab=False)
+        key = (_cache_key(inputs)
+               if (start_idx in (0, None)) and (stop_idx in (None, 0))
+               and Xc is None and all(s.algo == "SGD" for s in self.specs)
+               else None)
+        cacheable = key is not None
         preds = None
         n_trees = self.get_num_trees() if cacheable else None
         if cacheable and self._pred_cache is not None:
@@ -372,7 +388,7 @@ class GBTLearner(BaseLearner):
         as soon as the work is queued: CUDA launches are asynchronous, so
         the caller overlaps host work until it reads the result."""
         assert self.ens is not None, "call reset() first"
-        Xn, Xc, _ = self._prepare(inputs, grow_vocab=False)
+        Xn, Xc = self._prepare(inputs, grow_vocab=False)
         return _predict_full(self.cfg, self.ens, Xn, self.specs, 0,
                              int(self.ens.capacity), Xc)
 

@@ -21,16 +21,22 @@ left.  Leaf values are the masked mean of the *raw* gradients.
 Dispatch in ``build_tree`` follows the JAX package on a TPU, without its
 VMEM guards:
 
-- numeric-only trees take the level path on every device: per level K2
-  (``level_histogram_cuda``) then K3 (``level_score_cuda``) from
-  ``ops/kernels.py`` -- the kernels on CUDA tensors, their plain versions
-  on CPU tensors;
+- numeric-only trees of depth <= 4 take the whole-tree path when the module
+  hook ``_DISABLE_FUSED_TREE`` is False: one K6 launch per tree
+  (``tree_build_cuda``);
+- other numeric-only trees, and all of them by default (the JAX package's
+  default, ``_DISABLE_FUSED_TREE = True``), take the level path: per level
+  K2 (``level_histogram_cuda``) then K3 (``level_score_cuda``);
 - trees with categorical columns take the general path in plain torch, with
   their histograms through the K2 wrapper (``_level_histogram``).
 
-Where the JAX package builds a one-hot matmul only to avoid a TPU gather
-(routing, leaf sums) this module gathers directly or uses ``index_add_``.
-Nothing here waits for the device: the level's split flags stay tensors.
+Each wrapper from ``ops/kernels.py`` launches its kernel on CUDA tensors and
+runs its plain version on CPU tensors.  Routing gathers directly where the
+JAX package builds a one-hot matmul to avoid a TPU gather.  Leaf and node
+sums are one-hot contractions as in the JAX package, in float64, so they
+take a fixed order on every device (``index_add_`` adds with atomics on
+CUDA).  Nothing here waits for the device: the level's split flags stay
+tensors.
 """
 from __future__ import annotations
 
@@ -39,9 +45,13 @@ from typing import Dict, Optional
 import torch
 
 from ..config import TreeConfig
-from .kernels import level_histogram_cuda, level_score_cuda
+from .kernels import (NPMAX, level_histogram_cuda, level_score_cuda,
+                      tree_build_cuda)
 
 NEG_INF = float("-inf")
+# test hook, as in the JAX package: False sends numeric trees of depth
+# <= 4 through K6, one launch per tree
+_DISABLE_FUSED_TREE = True
 
 
 def _l2_of_sum(s: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
@@ -137,11 +147,20 @@ def _route_level(Xb, Xc, node_rel, do_split, is_num_sel, f_num, b_num,
     return node_rel * 2 + go.to(torch.int32)
 
 
+def _segment_sum(rows: torch.Tensor, seg: torch.Tensor,
+                 n_seg: int) -> torch.Tensor:
+    """[n_seg, C] sums of rows [N, C] by segment id: a one-hot contraction
+    in float64, rounded once to float32.  Deterministic on every device and
+    untouched by the TF32 matmul setting."""
+    oh = (seg[:, None] == torch.arange(n_seg, device=seg.device)[None, :])
+    return torch.mm(oh.to(torch.float64).T, rows.to(torch.float64)).to(
+        torch.float32)
+
+
 def _node_stats(node_rel, build_grads, sample_w, n_nodes):
     O = build_grads.shape[-1]
-    agg = torch.zeros((n_nodes, O + 1), dtype=torch.float32,
-                      device=build_grads.device)
-    agg.index_add_(0, node_rel.long(), _weighted_rows(build_grads, sample_w))
+    agg = _segment_sum(_weighted_rows(build_grads, sample_w), node_rel,
+                       n_nodes)
     return agg[:, :O], agg[:, O]
 
 
@@ -227,6 +246,11 @@ def build_tree(cfg: TreeConfig, Xb: Optional[torch.Tensor],
     depth_reached = torch.zeros((), dtype=torch.int32, device=dev)
     fw = feat_w.to(torch.float32).contiguous() if has_num else None
 
+    if (has_num and not has_cat and not _DISABLE_FUSED_TREE
+            and (1 << (D - 1)) <= NPMAX):
+        return _fused_tree(cfg, Xb, cand_vals, grads, build_grads, sample_w,
+                           fw)
+
     for d in range(D):
         n_nodes = 1 << d
         if has_num and not has_cat:
@@ -311,8 +335,15 @@ def build_tree(cfg: TreeConfig, Xb: Optional[torch.Tensor],
             blocked_cat = (blocked_cat | chosen_c)[rep]
 
     # leaf values = masked mean of raw gradients (fitter.cpp:545-582)
-    leaf = torch.zeros((L, O + 1), dtype=torch.float32, device=dev)
-    leaf.index_add_(0, node_rel.long(), _weighted_rows(grads, sample_w))
+    leaf = _segment_sum(_weighted_rows(grads, sample_w), node_rel, L)
+    return _tree_dict(lv_feat, lv_thr, lv_code, lv_split, lv_isnum, lv_cnt,
+                      leaf, O, depth_reached)
+
+
+def _tree_dict(lv_feat, lv_thr, lv_code, lv_split, lv_isnum, lv_cnt,
+               leaf: torch.Tensor, O: int, depth: torch.Tensor) -> dict:
+    """The per-tree dict from the per-level lists and the leaf sums [L,
+    O + 1] (counts in the last column)."""
     leaf_cnt = leaf[:, O]
     safe = torch.where(leaf_cnt > 0, leaf_cnt, torch.ones_like(leaf_cnt))
     leaf_values = torch.where(leaf_cnt[:, None] > 0, leaf[:, :O] / safe[:, None],
@@ -325,8 +356,37 @@ def build_tree(cfg: TreeConfig, Xb: Optional[torch.Tensor],
         is_numeric=torch.cat(lv_isnum),
         leaf_values=leaf_values,
         counts=torch.cat(lv_cnt + [leaf_cnt]),
-        depth=depth_reached,
+        depth=depth,
     )
+
+
+def _fused_tree(cfg: TreeConfig, Xb, cand_vals, grads, build_grads, sample_w,
+                fw) -> dict:
+    """The whole-tree path (gbrl_tpu/ops/fit.py:277-331): one K6 launch,
+    then its per-level choices decoded into heap-layout fields, on the
+    device."""
+    B, O, D = cfg.n_bins, cfg.output_dim, cfg.max_depth
+    best_idx, do_split, stats, leaf = tree_build_cuda(
+        Xb.contiguous(), cand_vals.contiguous(), fw,
+        _weighted_rows(build_grads, sample_w).contiguous(),
+        _weighted_rows(grads, sample_w).contiguous(), D, B, O, cfg.score,
+        cfg.min_data_in_leaf, cfg.oblivious)
+    lv_feat, lv_thr, lv_code, lv_split, lv_isnum, lv_cnt = ([] for _ in range(6))
+    depth_reached = torch.zeros((), dtype=torch.int32, device=Xb.device)
+    for d in range(D):
+        k = 1 << d
+        split = do_split[d, :k]
+        f_num = best_idx[d, :k] // B
+        v_sel = cand_vals[f_num.long(), (best_idx[d, :k] % B).long()]
+        lv_feat.append(torch.where(split, f_num, torch.full_like(f_num, -1)))
+        lv_thr.append(torch.where(split, v_sel, torch.zeros_like(v_sel)))
+        lv_code.append(torch.full_like(f_num, -1))
+        lv_isnum.append(torch.ones_like(split))
+        lv_split.append(split)
+        lv_cnt.append(stats[d, :k, 1])
+        depth_reached = torch.where(split.any(), d + 1, depth_reached)
+    return _tree_dict(lv_feat, lv_thr, lv_code, lv_split, lv_isnum, lv_cnt,
+                      leaf, O, depth_reached)
 
 
 def standardize_l2(build_grads: torch.Tensor,

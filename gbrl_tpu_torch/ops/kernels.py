@@ -1,15 +1,17 @@
-"""Hand-written CUDA kernels (K1-K5) and their plain PyTorch versions.
+"""Hand-written CUDA kernels (K1-K6) and their plain PyTorch versions.
 
 Counterpart of ``gbrl_tpu/ops/pallas_kernels.py``:
 
 - ``bucketize_cuda``          replaces ``bucketize_pallas`` (K1);
 - ``level_histogram_cuda``    replaces ``level_histogram_pallas`` (K2);
 - ``level_score_cuda``        replaces ``level_score_pallas`` (K3);
+- ``tree_build_cuda``         replaces ``tree_build_pallas`` (K6);
 - ``weighted_leaf_sum_cuda``  replaces ``weighted_leaf_sum_pallas`` (K4);
 - ``oblivious_leaf_sum_cuda`` replaces ``oblivious_leaf_sum_pallas`` (K5).
 
 K1-K3 are the fit path (``csrc/fit.cu``): bucket ids, one level's gradient
-histogram, one level's split choice.  K4 and K5 compute
+histogram, one level's split choice.  K6 (``csrc/tree.cu``) fits a whole
+numeric tree of depth <= 4 in one cooperative launch.  K4 and K5 compute
 ``sum_{t < n_trees} w[t, leaf(n, t), :] -> [N, O]`` with
 ``w = leaf_values * coeff`` already folded (``csrc/predict.cu``).  The CUDA
 sources are compiled at first use with ``nvcc``, one process per source
@@ -40,7 +42,9 @@ from typing import Callable, Union
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("predict.cu", "fit.cu")
+SOURCES = ("predict.cu", "fit.cu", "tree.cu")
+# headers the sources include: part of the build key
+HEADERS = ("score.cuh",)
 # per-source compile flags; the objects are linked with -shared
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-Xcompiler", "-fPIC")
@@ -56,7 +60,8 @@ SMEM_BUDGET = 100 * 1024
 PLAIN_TREE_CHUNK = 512
 
 launch_counts = {"bucketize": 0, "level_histogram": 0, "level_score": 0,
-                 "weighted_leaf_sum": 0, "oblivious_leaf_sum": 0}
+                 "tree_build": 0, "weighted_leaf_sum": 0,
+                 "oblivious_leaf_sum": 0}
 
 
 def reset_launch_counts() -> None:
@@ -160,7 +165,7 @@ def build_dir() -> Path:
 
 def _source_key() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
@@ -233,6 +238,11 @@ def _library() -> ctypes.CDLL:
     for name in ("gbrl_k1_smem_bytes", "gbrl_k2_smem_bytes",
                  "gbrl_k3_smem_bytes"):
         getattr(lib, name).restype = size
+    lib.gbrl_k6_tree_build.argtypes = ([ptr] * 14 + [i32] * 8
+                                       + [ctypes.c_float, i32, ptr])
+    lib.gbrl_k6_tree_build.restype = i32
+    lib.gbrl_k6_smem_bytes.argtypes = [i32] * 3
+    lib.gbrl_k6_smem_bytes.restype = size
     return lib
 
 
@@ -618,3 +628,164 @@ def level_score_cuda(hist: torch.Tensor, blocked: torch.Tensor,
           int(bool(is_root)))
     launch_counts["level_score"] += 1
     return best_idx, best, stats[:, O], stats[:, O + 1], stats[:, :O]
+
+
+# ============================================================== whole tree
+# K6 (csrc/tree.cu): one cooperative launch fits one numeric tree.
+NPMAX = 8            # nodes per level K6 takes (tree.cu NPMAX): depth <= 4
+
+
+def _tree_tiling(N: int, F: int):
+    """K6's sample tiles -> (samples per tile, tiles): about
+    HIST_TARGET_BLOCKS (tile, feature) work items, never fewer than
+    HIST_MIN_TILE samples a tile.  The plain version takes the same tiles,
+    since they set its summation order."""
+    if N == 0:
+        return 1, 0
+    n_tiles = max(1, min(-(-N // HIST_MIN_TILE),
+                         -(-HIST_TARGET_BLOCKS // max(F, 1))))
+    tile = -(-N // n_tiles)
+    return tile, -(-N // tile)
+
+
+def _tile_sums(idx: torch.Tensor, vals: torch.Tensor, n_idx: int,
+               tile: int) -> torch.Tensor:
+    """``out[t, j, c, i]`` = the sum, over the samples n of tile t in
+    increasing order, of ``vals[n, c]`` where ``idx[n, j] == i`` (ids outside
+    [0, n_idx) add nothing): idx [N, J] int, vals [N, C] -> [n_tiles, J, C,
+    n_idx].  One scatter per position in the tile, each destination taking
+    one term, so every sum has K6's order on any device."""
+    N, J = idx.shape
+    C = vals.shape[1]
+    n_tiles = -(-N // tile)
+    pad = n_tiles * tile - N
+    valid = (idx >= 0) & (idx < n_idx)
+    ii = torch.where(valid, idx.long(), torch.zeros_like(idx, dtype=torch.long))
+    v = torch.where(valid[:, :, None], vals[:, None, :],
+                    torch.zeros((), dtype=vals.dtype, device=vals.device))
+    if pad:
+        ii = torch.cat([ii, ii.new_zeros((pad, J))])
+        v = torch.cat([v, v.new_zeros((pad, J, C))])
+    ii = ii.reshape(n_tiles, tile, J)
+    v = v.reshape(n_tiles, tile, J, C)
+    out = torch.zeros((n_tiles, J, C, n_idx), dtype=torch.float32,
+                      device=vals.device)
+    for s in range(tile):
+        out.scatter_add_(3, ii[:, s, :, None, None].expand(n_tiles, J, C, 1),
+                         v[:, s, :, :, None])
+    return out
+
+
+def _sum_tiles(part: torch.Tensor) -> torch.Tensor:
+    """Sum over the leading (tile) dimension in tile order, from +0."""
+    acc = torch.zeros(part.shape[1:], dtype=part.dtype, device=part.device)
+    for t in range(part.shape[0]):
+        acc = acc + part[t]
+    return acc
+
+
+def tree_build_plain(Xb: torch.Tensor, cand: torch.Tensor,
+                     feat_w: torch.Tensor, bgw: torch.Tensor, wg: torch.Tensor,
+                     max_depth: int, n_bins: int, out_dim: int, score: str,
+                     min_data: int, oblivious: bool, tile: int):
+    """K6's function in plain torch, with the kernel's summation order:
+    histograms and leaf sums per sample tile in sample order, then over the
+    tiles in tile order; each level's scores and choice as K3's plain
+    version (``level_score_plain``).  Arguments and results as
+    ``tree_build_cuda``, plus the tile size that sets the order."""
+    N, F = Xb.shape
+    B, O, D = n_bins, out_dim, max_depth
+    K = O + 1
+    dev = Xb.device
+    best_idx = torch.zeros((D, NPMAX), dtype=torch.int32, device=dev)
+    do_split = torch.zeros((D, NPMAX), dtype=torch.bool, device=dev)
+    stats = torch.zeros((D, NPMAX, O + 3), dtype=torch.float32, device=dev)
+    rel = torch.zeros((N,), dtype=torch.long, device=dev)
+    blocked = torch.zeros((1, F, B), dtype=torch.bool, device=dev)
+    alive = torch.ones((), dtype=torch.bool, device=dev)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    for d in range(D):
+        nact = 1 << d
+        own = rel[:, None] == torch.arange(nact, device=dev)[None, :]
+        nd = torch.where(own[:, :, None], bgw[:, None, :], zero
+                         ).reshape(N, nact * K)
+        hist = _sum_tiles(_tile_sums(Xb, nd, B + 1, tile))
+        bi, best, ct, parent, sums = level_score_plain(
+            hist, blocked, feat_w, B, O, score, min_data, oblivious, d == 0)
+        if oblivious:
+            alive = alive & (best[0] > float("-inf"))
+            split = alive.expand(nact)
+        else:
+            split = (best >= 0) & (ct > 0)
+        best_idx[d, :nact] = bi
+        do_split[d, :nact] = split
+        stats[d, :nact] = torch.cat([best[:, None], ct[:, None],
+                                     parent[:, None], sums], dim=1)
+        f_sel = (bi // B).long()
+        b_sel = bi % B
+        x = torch.gather(Xb, 1, f_sel[rel][:, None])[:, 0]
+        rel = 2 * rel + (split[rel] & (x > b_sel[rel])).long()
+        v_sel = cand[f_sel, b_sel.long()]
+        chosen = (split[:, None, None]
+                  & (f_sel[:, None, None]
+                     == torch.arange(F, device=dev)[None, :, None])
+                  & (v_sel[:, None, None] == cand[None, :, :]))
+        blocked = (blocked | chosen)[torch.arange(2 * nact, device=dev) // 2]
+    leaf = _sum_tiles(_tile_sums(rel[:, None], wg, 1 << D, tile))[0].T
+    return best_idx, do_split, stats, leaf.contiguous()
+
+
+def tree_build_cuda(Xb: torch.Tensor, cand: torch.Tensor, feat_w: torch.Tensor,
+                    bgw: torch.Tensor, wg: torch.Tensor, max_depth: int,
+                    n_bins: int, out_dim: int, score: str, min_data: int,
+                    oblivious: bool):
+    """K6: one numeric tree of depth ``max_depth`` <= 4 in one launch.
+
+    Xb [N, F] int32 bucket ids in [0, n_bins]; cand [F, n_bins] f32
+    ascending; feat_w [F] f32; bgw [N, O + 1] (scoring gradients * w | w)
+    and wg [N, O + 1] (raw gradients * w | w) f32.  Returns per level d and
+    node n < NPMAX (nodes past the level's 2^d zero): best_idx [D, NPMAX]
+    int32 (f * n_bins + b), do_split [D, NPMAX] bool, stats [D, NPMAX,
+    O + 3] f32 (best score, node count, parent score, node sums [O]), and
+    leaf [2^D, O + 1] f32, the wg sums of each leaf.  Deterministic: the
+    same inputs give the same bits, equal to ``tree_build_plain``'s."""
+    N, F = Xb.shape
+    tile, n_tiles = _tree_tiling(N, F)
+    args = (Xb, cand, feat_w, bgw, wg, max_depth, n_bins, out_dim, score,
+            min_data, oblivious)
+    if Xb.device.type == "cpu":
+        return tree_build_plain(*args, tile)
+    dev = _fit_check(dict(Xb=Xb, cand=cand, feat_w=feat_w, bgw=bgw, wg=wg),
+                     dict(Xb=(torch.int32, 2), cand=(torch.float32, 2),
+                          feat_w=(torch.float32, 1), bgw=(torch.float32, 2),
+                          wg=(torch.float32, 2)))
+    B, O, D = n_bins, out_dim, max_depth
+    K = O + 1
+    if (tuple(cand.shape) != (F, B) or feat_w.shape[0] != F or F < 1
+            or B < 1 or tuple(bgw.shape) != (N, K)
+            or tuple(wg.shape) != (N, K)):
+        raise ValueError(
+            f"tree_build: Xb {tuple(Xb.shape)}, cand {tuple(cand.shape)}, "
+            f"feat_w {tuple(feat_w.shape)}, bgw {tuple(bgw.shape)}, wg "
+            f"{tuple(wg.shape)} do not fit n_bins={B}, out_dim={O}")
+    if not 1 <= D or (1 << (D - 1)) > NPMAX:
+        raise ValueError(f"tree_build takes depths 1 to 4, got {D}")
+    lib = _library()
+    _smem_fits(lib, dev, lib.gbrl_k6_smem_bytes(O, B, D), "tree_build")
+    f32 = dict(dtype=torch.float32, device=dev)
+    C = (1 << (D - 1)) * K
+    part = torch.empty((n_tiles, F, C, B + 1), **f32)
+    hist = torch.empty((F, C, B + 1), **f32)
+    adj = torch.empty((1 << (D - 1), F * B), **f32)
+    nstat = torch.empty((NPMAX, O + 2), **f32)
+    lpart = torch.empty((n_tiles, 1 << D, K), **f32)
+    best_idx = torch.empty((D, NPMAX), dtype=torch.int32, device=dev)
+    do_split = torch.empty((D, NPMAX), dtype=torch.uint8, device=dev)
+    stats = torch.empty((D, NPMAX, O + 3), **f32)
+    leaf = torch.empty((1 << D, K), **f32)
+    _call(lib, "gbrl_k6_tree_build", dev, *(t.data_ptr() for t in (
+        Xb, cand, feat_w, bgw, wg, part, hist, adj, nstat, lpart, best_idx,
+        do_split, stats, leaf)), N, F, B, O, D, tile, n_tiles,
+        int(score == "cosine"), float(min_data), int(bool(oblivious)))
+    launch_counts["tree_build"] += 1
+    return best_idx, do_split.bool(), stats, leaf

@@ -1,0 +1,211 @@
+"""The PPO update phase on the card: every epoch x minibatch of one update
+runs as one loop over device tensors (counterpart of
+``gbrl_tpu/rl/jit_update.py``).
+
+The rollout is copied to the device once; then each minibatch runs predict
+-> PPO-loss gradients -> candidates (K1) -> one tree (the level path or K6)
+-> an incremental prediction update, with no host synchronisation inside
+the loop: the minibatch plan and the tree indices are host integers, and
+every per-minibatch value stays a device tensor.  Where the JAX package has
+``jax.jit`` and ``lax.fori_loop``, this is a Python loop that queues its
+launches and returns.
+
+Semantics are the torch facade path's (rl/ppo.py ``update``): clipped
+surrogate + entropy bonus on the policy columns, 0.5 * vf_coef * MSE on the
+value column, gradients scaled by the minibatch size as the facade's
+``params.grad.detach() * n`` (models/actor_critic.py step; reference
+gbt.py:174), candidates per minibatch as in Fitter::step_cpu (reference
+fitter.cpp:50-115), per-sample gradient-norm clipping per block as
+common.utils.clip_grad_norm (reference utils.py:270-295).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..config import TreeConfig
+from ..ensemble import Ensemble, ensure_capacity
+from ..ops.boosting import (_lr_columns, _masked_candidates, predict_sgd,
+                            write_tree)
+from ..ops.candidates import bucketize
+from ..ops.fit import build_tree, standardize_l2
+from ..ops.predict import single_tree_leaf_values
+from ..optimizers import OptimizerSpec
+
+
+class PPOHyper(NamedTuple):
+    """PPO hyperparameters."""
+    n_actions: int
+    clip_range: float
+    ent_coef: float
+    vf_coef: float
+    normalize_advantage: bool
+    policy_clip: float   # 0.0 = off
+    value_clip: float    # 0.0 = off
+
+
+def _block_clip(g: torch.Tensor, max_norm: float) -> torch.Tensor:
+    """Per-sample L2 clip of a gradient block (common.utils.clip_grad_norm)."""
+    if not max_norm:
+        return g
+    norms = torch.sqrt(torch.sum(g * g, dim=-1, keepdim=True))
+    return g * torch.clamp(max_norm / (norms + 1e-8), max=1.0)
+
+
+def normalized_advantage(adv: torch.Tensor, w: torch.Tensor,
+                         n_real: torch.Tensor) -> torch.Tensor:
+    """(adv - mean) / (std + 1e-8) over the weighted rows, with torch's
+    unbiased (n - 1) std."""
+    m = torch.sum(adv * w) / n_real
+    var = torch.sum(w * (adv - m) ** 2) / torch.clamp(n_real - 1.0, min=1.0)
+    return (adv - m) / (torch.sqrt(var) + 1e-8)
+
+
+def ppo_minibatch_grads(hp: PPOHyper, preds: torch.Tensor,
+                        actions: torch.Tensor, old_logp: torch.Tensor,
+                        adv: torch.Tensor, ret: torch.Tensor,
+                        w: torch.Tensor) -> torch.Tensor:
+    """Per-sample boosting gradients of the PPO objective with respect to
+    the raw ensemble outputs [mb, na + 1] (policy logits | value), scaled by
+    the real minibatch size (the facade's mean-loss gradient * n).  The
+    gradient is ``torch.autograd.grad`` of the loss that ``jax.grad`` takes
+    in the JAX package."""
+    na = hp.n_actions
+    n_real = torch.clamp(torch.sum(w), min=1.0)
+    if hp.normalize_advantage:
+        adv = normalized_advantage(adv, w, n_real)
+    p = preds.detach().requires_grad_(True)
+    with torch.enable_grad():
+        logp_all = torch.log_softmax(p[:, :na], dim=-1)
+        lp = torch.gather(logp_all, 1, actions.long()[:, None])[:, 0]
+        ratio = torch.exp(lp - old_logp)
+        pg1 = adv * ratio
+        pg2 = adv * torch.clamp(ratio, 1.0 - hp.clip_range,
+                                1.0 + hp.clip_range)
+        policy_term = -torch.minimum(pg1, pg2)
+        ent = -torch.sum(torch.exp(logp_all) * logp_all, dim=-1)
+        value_term = hp.vf_coef * 0.5 * (ret - p[:, na]) ** 2
+        per_sample = policy_term - hp.ent_coef * ent + value_term
+        loss = torch.sum(per_sample * w) / n_real
+        (g,) = torch.autograd.grad(loss, p)
+    g = g * n_real * w[:, None]
+    if hp.policy_clip or hp.value_clip:
+        g = torch.cat([_block_clip(g[:, :na], hp.policy_clip),
+                       _block_clip(g[:, na:], hp.value_clip)], dim=1)
+    return g
+
+
+def ppo_update_loop(cfg: TreeConfig, hp: PPOHyper, n_updates: int,
+                    ens: Ensemble, X: torch.Tensor, mb_idx: torch.Tensor,
+                    mb_n: Sequence[int], actions: torch.Tensor,
+                    old_logp: torch.Tensor, adv: torch.Tensor,
+                    ret: torch.Tensor, specs: Tuple[OptimizerSpec, ...],
+                    feat_w: torch.Tensor, n_trees0: int,
+                    valid: Optional[torch.Tensor] = None
+                    ) -> Tuple[Ensemble, torch.Tensor]:
+    """Run ``n_updates`` PPO minibatch boosting steps on the tensors'
+    device, with no host synchronisation.
+
+    X [B, F] rollout observations; mb_idx [U, mb] int64 row indices into X
+    (on the device; rows past mb_n[u] are padding and masked); mb_n [U]
+    host ints; actions / old_logp / adv / ret / valid [B]; n_trees0 the
+    ensemble's tree count (a host int, kept by the caller).  Predictions
+    over the whole rollout are kept up to date incrementally: after each
+    tree only that tree is evaluated on X (leaf values are immutable once
+    fit), as ``ops.boosting.fit_loop`` does.  The ensemble must have room
+    for ``n_updates`` more trees.  Returns (ensemble, [U] policy entropy of
+    each minibatch, a diagnostic)."""
+    dev = X.device
+    mb = mb_idx.shape[1]
+    na = hp.n_actions
+    preds_full = predict_sgd(cfg, ens, X, specs, 0, n_trees0)
+    rows = torch.arange(mb, device=dev)
+    ents = []
+    for u in range(n_updates):
+        idx = mb_idx[u]
+        n_u = int(mb_n[u])
+        w = (rows < n_u).to(torch.float32)
+        if valid is not None:
+            w = w * valid[idx]          # autoreset rows (rl/buffers.py flat)
+        Xmb = X[idx]
+        pmb = preds_full[idx]
+        grads = ppo_minibatch_grads(hp, pmb, actions[idx], old_logp[idx],
+                                    adv[idx], ret[idx], w)
+        build = standardize_l2(grads, w) if cfg.score == "l2" else grads
+        cand_vals = _masked_candidates(cfg, Xmb, n_u)
+        tree = build_tree(cfg, bucketize(Xmb, cand_vals), cand_vals, grads,
+                          build, w, feat_w)
+        t_idx = torch.full((), n_trees0 + u, dtype=torch.int32, device=dev)
+        ens = write_tree(ens, tree, t_idx)
+        v_new = single_tree_leaf_values(cfg, tree, X)
+        preds_full = preds_full + _lr_columns(specs, cfg.output_dim,
+                                              t_idx)[None, :] * v_new
+        # mean policy entropy of this minibatch (diagnostic)
+        logp_all = torch.log_softmax(pmb[:, :na], dim=-1)
+        ent = -torch.sum(torch.exp(logp_all) * logp_all, dim=-1)
+        ents.append(torch.sum(ent * w) / torch.clamp(torch.sum(w), min=1.0))
+    ent_trace = (torch.stack(ents) if ents else
+                 torch.zeros((0,), dtype=torch.float32, device=dev))
+    return ens, ent_trace
+
+
+def minibatch_plan(n: int, n_epochs: int, batch_size: int, rng):
+    """The epoch/minibatch index plan of one update phase: (mb_idx [U, bs]
+    int64, mb_n [U]), one permutation of the rollout per epoch, minibatches
+    of fewer than 2 rows dropped as the facade path drops them."""
+    bs = min(batch_size, n)
+    per_epoch = (n + bs - 1) // bs
+    U = n_epochs * per_epoch
+    mb_idx = np.zeros((U, bs), dtype=np.int64)
+    mb_n = np.zeros((U,), dtype=np.int64)
+    u = 0
+    for _ in range(n_epochs):
+        perm = rng.permutation(n)
+        for start in range(0, n, bs):
+            sl = perm[start:start + bs]
+            mb_idx[u, :len(sl)] = sl
+            mb_n[u] = len(sl)
+            u += 1
+    keep = mb_n >= 2
+    return mb_idx[keep], mb_n[keep]
+
+
+def run_ppo_update(learner, obs: np.ndarray, actions: np.ndarray,
+                   old_log_probs: np.ndarray, advantages: np.ndarray,
+                   returns: np.ndarray, hp: PPOHyper, n_epochs: int,
+                   batch_size: int, rng,
+                   valid: Optional[np.ndarray] = None) -> np.ndarray:
+    """Host wrapper: build the minibatch plan, copy the rollout to the
+    device once (observations, one packed [B, 5] float block and the plan),
+    run the loop, read the entropy trace back.  Updates the learner in
+    place; returns the trace."""
+    mb_idx, mb_n = minibatch_plan(len(obs), n_epochs, batch_size, rng)
+    U = len(mb_n)
+    Xn, Xc = learner._prepare(obs, grow_vocab=False)
+    assert Xc is None, "the fused PPO update takes numerical features only"
+    # the host copy of n_trees: reading ens.n_trees would wait for the card
+    nt = learner._rl_host_n_trees
+    if nt is None:
+        nt = int(learner.ens.n_trees)
+    learner.ens = ensure_capacity(learner.ens, nt + U)
+    learner._rl_host_n_trees = nt + U
+    dev = learner.torch_device
+    n = len(obs)
+    cols = [np.asarray(actions, np.float32).reshape(n),
+            np.asarray(old_log_probs, np.float32).reshape(n),
+            np.asarray(advantages, np.float32).reshape(n),
+            np.asarray(returns, np.float32).reshape(n),
+            (np.ones(n, np.float32) if valid is None
+             else np.asarray(valid, np.float32).reshape(n))]
+    pack = torch.from_numpy(np.stack(cols, axis=1)).to(dev)
+    learner.ens, ent_trace = ppo_update_loop(
+        learner.cfg, hp, U, learner.ens, Xn,
+        torch.from_numpy(mb_idx).to(dev), mb_n.tolist(),
+        pack[:, 0].to(torch.int64), pack[:, 1], pack[:, 2], pack[:, 3],
+        learner.specs, learner._internal_feature_weights(), nt,
+        None if valid is None else pack[:, 4])
+    learner.total_iterations += U
+    learner._pred_cache = None
+    return ent_trace.cpu().numpy()

@@ -1,4 +1,4 @@
-"""K1-K5 CUDA kernels against their plain versions, on the card.
+"""K1-K6 CUDA kernels against their plain versions, on the card.
 
 Marked ``cuda``: every test takes the ``cuda_device`` fixture, which skips
 when PyTorch sees no CUDA device (CUDA kernels have no CPU mode).  Run on a
@@ -187,6 +187,67 @@ def test_build_tree_on_card_matches_cpu(cuda_device):
                               rtol=1e-5, atol=1e-6)
 
 
+def _tree_args(rng, dev, n, f, depth, score, min_data, oblivious, o=3,
+               b=256):
+    from gbrl_tpu_torch.ops.fit import _weighted_rows
+    X = rng.normal(size=(n, f)).astype(np.float32)
+    X[: n // 8, 0] = 0.25                                     # repeats
+    cand = torch.from_numpy(np.sort(np.quantile(
+        X, np.linspace(0, 1, b + 2)[1:-1], axis=0).T, axis=1)
+        .astype(np.float32)).contiguous().to(dev)
+    Xb = K.bucketize_cuda(torch.from_numpy(X).to(dev), cand)
+    w = torch.from_numpy((rng.random(n) > 0.2).astype(np.float32)).to(dev)
+    fw = torch.from_numpy(rng.uniform(0.5, 1.5, f).astype(np.float32)).to(dev)
+    fw[f // 2] = 0.0                                          # zero weight
+    g = [torch.from_numpy(rng.normal(size=(n, o)).astype(np.float32)).to(dev)
+         for _ in range(2)]
+    return (Xb, cand, fw, _weighted_rows(g[0], w), _weighted_rows(g[1], w),
+            depth, b, o, score, min_data, oblivious)
+
+
+@pytest.mark.parametrize("oblivious", [False, True])
+@pytest.mark.parametrize("score", ["cosine", "l2"])
+@pytest.mark.parametrize("n,f,depth,min_data", [(512, 4, 4, 0),
+                                                (4096, 16, 4, 20),
+                                                (700, 5, 3, 20),
+                                                (300, 3, 1, 0),
+                                                (1000, 6, 2, 0)])
+def test_tree_build_matches_plain(cuda_device, oblivious, score, n, f, depth,
+                                  min_data):
+    """K6: the choices equal to the plain version's, the values within 1e-6
+    of scale (the kernel repeats the plain version's summation order), and
+    the same bits on two launches."""
+    a = _tree_args(np.random.default_rng(n + depth), cuda_device, n, f,
+                   depth, score, min_data, oblivious)
+    before = K.launch_counts["tree_build"]
+    got = K.tree_build_cuda(*a)
+    again = K.tree_build_cuda(*a)
+    want = K.tree_build_plain(*a, K._tree_tiling(n, f)[0])
+    torch.cuda.synchronize()
+    assert K.launch_counts["tree_build"] == before + 2
+    for x, y in zip(got, again):
+        assert torch.equal(x, y)
+    for x, y in zip(got[:2], want[:2]):
+        assert torch.equal(x, y)
+    for x, y in zip(got[2:], want[2:]):
+        fin = torch.isfinite(y)
+        assert torch.equal(fin, torch.isfinite(x))
+        assert torch.equal(x[~fin], y[~fin])
+        err = (x[fin] - y[fin]).abs().max().item()
+        assert err <= 1e-6 * y[fin].abs().max().item(), err
+
+
+def test_tree_build_rejects_bad_inputs(cuda_device):
+    a = list(_tree_args(np.random.default_rng(0), cuda_device, 64, 3, 4,
+                        "cosine", 0, False))
+    with pytest.raises(ValueError, match="depths 1 to 4"):
+        K.tree_build_cuda(*a[:5], 5, *a[6:])
+    with pytest.raises(ValueError):
+        K.tree_build_cuda(a[0].float(), *a[1:])
+    with pytest.raises(ValueError):
+        K.tree_build_cuda(*a[:3], a[3][:, :2].contiguous(), *a[4:])
+
+
 class _FailingLibrary:
     """The built library with one entry point that reports a CUDA error."""
 
@@ -201,7 +262,8 @@ class _FailingLibrary:
 
 @pytest.mark.parametrize("entry", ["gbrl_k1_bucketize",
                                    "gbrl_k2_level_histogram",
-                                   "gbrl_k3_level_score"])
+                                   "gbrl_k3_level_score",
+                                   "gbrl_k6_tree_build"])
 def test_failing_launch_raises_without_fallback(cuda_device, monkeypatch,
                                                 entry):
     """A wrapper whose library call fails raises: it neither falls back to
@@ -217,7 +279,11 @@ def test_failing_launch_raises_without_fallback(cuda_device, monkeypatch,
                  lambda: K.level_histogram_cuda(Xb, nd, 17),
              "gbrl_k3_level_score":
                  lambda: K.level_score_cuda(hist, blocked, fw, 16, 3,
-                                            "cosine", 0, False, False)}
+                                            "cosine", 0, False, False),
+             "gbrl_k6_tree_build":
+                 lambda: K.tree_build_cuda(Xb, cd, fw, nd[:, :4].contiguous(),
+                                           nd[:, :4].contiguous(), 2, 16, 3,
+                                           "cosine", 0, False)}
     real = K._library()
     monkeypatch.setattr(K, "_library", lambda: _FailingLibrary(real, entry))
     before = dict(K.launch_counts)
