@@ -47,8 +47,13 @@ Phases (any failure raises; the script then exits nonzero):
              host arrays, and given the card gradients a backward pass left
              on the predicted leaves; fit trees per second; host
              synchronisations in one boosting step and in both kinds of
-             step; K1-K3 times (CUDA events) beside their bounds, plain
-             versions and library yardsticks.
+             step; K1 and K2 at the bench and the PPO minibatch shape
+             (N = 512, F = 4): held against their plain versions, then the
+             call time (one call between CUDA events) and the device time
+             per call (torch.profiler), which must be one device launch,
+             beside torch.searchsorted's / index_add_'s, measured both
+             ways, their bounds and plain versions; K3 likewise at the
+             bench shape.
 
 Without a CUDA device it exits nonzero before printing any result.  It
 prints, before the last line, the nvidia-smi name/power-limit line and one
@@ -249,6 +254,53 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
         torch.cuda.synchronize()
         times.append(s.elapsed_time(e))
     return float(np.median(times))
+
+
+def device_ms(fn, reps: int = 20):
+    """(device ms per call of ``fn``, {device activity: count per call})
+    from a torch.profiler window over ``reps`` calls: each activity's mean
+    duration times its (rounded) count per call, so an activity the profiler
+    fails to record now and then does not lower the time.  A window with no
+    device activity at all is taken again, up to three times; then
+    (None, {})."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    stats = {}
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                n, us = stats.get(e.name, (0, 0.0))
+                stats[e.name] = (n + 1, us + e.time_range.elapsed_us())
+        if stats:
+            break
+    if not stats:
+        return None, {}
+    per_call = {k: max(1, round(n / reps)) for k, (n, _) in stats.items()}
+    ms = sum(us / n * per_call[k] for k, (n, us) in stats.items()) / 1e3
+    return ms, per_call
+
+
+def enqueue_ms(fn, reps: int = 200) -> float:
+    """Host time per call of ``fn`` without waiting for the card: ``reps``
+    calls back to back on the host clock (the wrapper's Python, ctypes and
+    launch cost; the card runs behind)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    secs = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return secs / reps * 1e3
 
 
 def host_ms(fn, reps: int, warmup: int = 5) -> str:
@@ -467,8 +519,8 @@ def tree_of(arrs: dict, t: int) -> dict:
 
 def phase_fit_parity(rng, dev):
     """Phase 6: K1-K3 against their plain versions at full width, and wide
-    and deep numeric trees through build_tree.  Returns the kernels'
-    arguments for the timing phase and their max abs errors."""
+    and deep numeric trees through build_tree.  Returns K3's arguments for
+    the timing phase and the kernels' max abs errors."""
     import torch
     from gbrl_tpu_torch.ops import candidates as C
     from gbrl_tpu_torch.ops import fit as FT
@@ -491,7 +543,7 @@ def phase_fit_parity(rng, dev):
     print(f"  K1 bucketize [{N} x {F}] x [{F} x {N_BINS}]: bit-equal to the "
           f"plain version on the card and on the CPU (ties, duplicate "
           f"candidates, NaN rows)")
-    args = {"bucketize": (Xd, cd), "level_histogram": [], "level_score": []}
+    args = {"level_score": []}
     errs = {"bucketize": 0.0, "level_histogram": 0.0, "level_score": 0.0}
     g = torch.from_numpy(rng.normal(size=(N, O)).astype(np.float32)).to(dev)
     w = torch.ones(N, device=dev)
@@ -514,7 +566,6 @@ def phase_fit_parity(rng, dev):
         print(f"  K2 level {d} C={nd.shape[1]}: same bits on two launches; "
               f"max abs err vs plain {err:.3g} (limit "
               f"{close_limit(want):.3g})")
-        args["level_histogram"].append((kb, nd, NB))
         blocked = torch.from_numpy(rng.random((n_nodes, F, N_BINS))
                                    < (0.05 if d else 0.0)).to(dev)
         for obl in (False, True):
@@ -714,6 +765,90 @@ def fit_bounds(name: str, a) -> tuple:
     return nbytes, ops * FLOPS_PER_INSTR
 
 
+def fit_time_inputs(K, rng, dev, n: int, f: int) -> dict:
+    """K1's and K2's arguments at one shape, made with numpy: normal
+    observations against their per-feature quantile grid (N_BINS
+    candidates), and one tree's four levels of node-expanded rows
+    (C = n_nodes * (O + 1), each row nonzero in its node's columns only)."""
+    import torch
+    X = rng.normal(size=(n, f)).astype(np.float32)
+    cand = np.ascontiguousarray(np.quantile(
+        X, np.linspace(0, 1, N_BINS + 2)[1:-1], axis=0).T.astype(np.float32))
+    Xd, cd = (torch.from_numpy(a).to(dev) for a in (X, cand))
+    Xb = K.bucketize_cuda(Xd, cd)
+    g = rng.normal(size=(n, O)).astype(np.float32)
+    rows = np.concatenate([g, np.ones((n, 1), np.float32)], 1)
+    levels = []
+    for d in range(DEPTH):
+        n_nodes = 1 << d
+        rel = rng.integers(0, n_nodes, n)
+        nd = np.zeros((n, n_nodes, O + 1), np.float32)
+        nd[np.arange(n), rel] = rows
+        levels.append((Xb, torch.from_numpy(nd.reshape(n, -1)).to(dev),
+                       N_BINS + 1))
+    return {"bucketize": [(Xd, cd)], "level_histogram": levels}
+
+
+def library_call(name: str, a):
+    """The one PyTorch call that computes the kernel's function on the same
+    inputs (inputs rearranged outside the timed call), or None."""
+    import torch
+    if name == "bucketize":
+        X, cand = a
+        Xt = X.t().contiguous()                     # searchsorted's layout
+        return lambda: torch.searchsorted(cand, Xt)
+    if name == "level_histogram":
+        Xb, nd, nb = a
+        n, f = Xb.shape
+        c = nd.shape[1]
+        ids = (torch.arange(f, device=Xb.device)[None, :] * nb
+               + Xb.long()).reshape(-1)
+        src = nd[:, None, :].expand(n, f, c).reshape(n * f, c)
+        out = torch.zeros((f * nb, c), device=Xb.device)
+        return lambda: out.index_add_(0, ids, src)
+    return None
+
+
+def fit_kernel_times(name: str, calls: list, fast, plain=None,
+                     plain_reps: int = KERNEL_REPS) -> dict:
+    """One kernel's times summed over ``calls`` (one tree's levels for K2
+    and K3): call_ms (median single call between CUDA events), host_ms
+    (enqueue time per call), kernel_ms and the device kernels per call
+    (profiler), the plain version's call time, the bound, and the library
+    call's call_ms / host_ms / kernel_ms where there is one."""
+    tot = dict(call_ms=0.0, kernel_ms=0.0, host_ms=0.0, device_kernels={},
+               plain_ms=0.0 if plain else None, bound_ms=0.0, t_bytes=0.0,
+               t_ops=0.0, library_call_ms=None, library_kernel_ms=None,
+               library_host_ms=None)
+    for a in calls:
+        tot["call_ms"] += cuda_ms(lambda: fast(*a), KERNEL_REPS)
+        tot["host_ms"] += enqueue_ms(lambda: fast(*a))
+        k_ms, per_call = device_ms(lambda: fast(*a))
+        tot["kernel_ms"] = (None if k_ms is None or tot["kernel_ms"] is None
+                            else tot["kernel_ms"] + k_ms)
+        for k, n in per_call.items():
+            tot["device_kernels"][k] = max(n, tot["device_kernels"].get(k, 0))
+        if plain:
+            tot["plain_ms"] += cuda_ms(lambda: plain(*a), plain_reps)
+        nbytes, ops = fit_bounds(name, a)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+        tot["bound_ms"] += max(t_bytes, t_ops) * 1e3
+        tot["t_bytes"] += t_bytes
+        tot["t_ops"] += t_ops
+        lib = library_call(name, a)
+        if lib is not None:
+            first = tot["library_call_ms"] is None
+            lk = device_ms(lib)[0]
+            for key, v in (("library_call_ms", cuda_ms(lib, KERNEL_REPS)),
+                           ("library_host_ms", enqueue_ms(lib)),
+                           ("library_kernel_ms", lk)):
+                tot[key] = (v if first else None if v is None
+                            or tot[key] is None else tot[key] + v)
+    tot["bound_by"] = ("bytes" if tot.pop("t_bytes") >= tot.pop("t_ops")
+                       else "operations")
+    return tot
+
+
 def sync_count(fn) -> int:
     """Host synchronisations PyTorch reports while ``fn`` runs."""
     import warnings
@@ -813,60 +948,73 @@ def phase_fit_times(rng, dev, args: dict, errs: dict, launches: dict):
     print(f"  host synchronisations: ops.boosting.boost_step (tensors on the "
           f"card) {n_sync}; ActorCritic.step (host arrays) {n_sync_step}; "
           f"ActorCritic.step (card gradients) {n_sync_card}")
-    # kernel times at the shapes of the main path
+    # kernel times at the shapes of the main path: K1 and K2 at the bench
+    # and the PPO minibatch shape (held against their plain versions first),
+    # K3 at the bench shape
     kernels = []
-    Xk, ck = args["bucketize"]
-    Xk_t = Xk.t().contiguous()                    # searchsorted's layout
-    plans = [("bucketize", [args["bucketize"]], K.bucketize_cuda,
-              K.bucketize_plain),
-             ("level_histogram", args["level_histogram"],
-              K.level_histogram_cuda, K.level_histogram_plain),
-             ("level_score", args["level_score"], K.level_score_cuda,
-              K.level_score_plain)]
-    for name, calls, fast, plain in plans:
-        tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, t_bytes=0.0, t_ops=0.0,
-                   library_ms=0.0 if name != "level_score" else None)
-        for lvl, a in enumerate(calls):
-            ms = cuda_ms(lambda: fast(*a), KERNEL_REPS)
-            pms = cuda_ms(lambda: plain(*a), KERNEL_REPS if name !=
-                          "level_score" else 5)
-            nbytes, ops = fit_bounds(name, a)
-            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
-            bms = max(t_bytes, t_ops) * 1e3
-            lib = None
-            if name == "bucketize":
-                lib = cuda_ms(lambda: torch.searchsorted(ck, Xk_t),
-                              KERNEL_REPS)
-            elif name == "level_histogram":
-                Xb, nd, nb = a
-                f_, c_ = Xb.shape[1], nd.shape[1]
-                ids = (torch.arange(f_, device=dev)[None, :] * nb
-                       + Xb.long()).reshape(-1)
-                src = nd[:, None, :].expand(N, f_, c_).reshape(N * f_, c_)
-                out = torch.zeros((f_ * nb, c_), device=dev)
-                lib = cuda_ms(lambda: out.index_add_(0, ids, src),
-                              KERNEL_REPS)
-            where = f"level {lvl} " if name != "bucketize" else ""
-            print(f"  {name} {where}: {ms:.5f} ms | plain {pms:.5f} ms | "
-                  f"library {'none' if lib is None else f'{lib:.5f} ms'} | "
-                  f"bound {bms:.6f} ms "
-                  f"({'bytes' if t_bytes >= t_ops else 'operations'})")
-            tot["ms"] += ms
-            tot["plain_ms"] += pms
-            tot["bound_ms"] += bms
-            tot["t_bytes"] += t_bytes
-            tot["t_ops"] += t_ops
-            if lib is not None:
-                tot["library_ms"] += lib
-        kernels.append(dict(
+    shapes = {"bench": fit_time_inputs(K, rng, dev, N, F),
+              "ppo": fit_time_inputs(K, rng, dev, PPO_N, PPO_F)}
+    for shape, inp in shapes.items():
+        (X, cand), = inp["bucketize"]
+        assert torch.equal(K.bucketize_cuda(X, cand),
+                           K.bucketize_plain(X, cand)), f"K1 {shape}"
+        for a in inp["level_histogram"]:
+            h = K.level_histogram_cuda(*a)
+            assert torch.equal(h, K.level_histogram_cuda(*a)), f"K2 {shape}"
+            want = K.level_histogram_plain(*a)
+            err = max_err(h, want)
+            assert err <= close_limit(want), f"K2 {shape}: err {err}"
+            errs["level_histogram"] = max(errs["level_histogram"], err)
+    plans = [("bucketize", K.bucketize_cuda, K.bucketize_plain),
+             ("level_histogram", K.level_histogram_cuda,
+              K.level_histogram_plain),
+             ("level_score", K.level_score_cuda, K.level_score_plain)]
+    for name, fast, plain in plans:
+        times = {}
+        for shape in ("bench", "ppo"):
+            if name == "level_score" and shape == "ppo":
+                continue
+            calls = (args["level_score"] if name == "level_score"
+                     else shapes[shape][name])
+            t = fit_kernel_times(name, calls, fast, plain,
+                                 5 if name == "level_score" else KERNEL_REPS)
+            times[shape] = t
+            lib = ("none" if t["library_call_ms"] is None else
+                   f"call {t['library_call_ms']:.5f} ms, host "
+                   f"{t['library_host_ms']:.5f} ms, kernel "
+                   f"{t['library_kernel_ms']} ms")
+            print(f"  {name} [{shape}]: call {t['call_ms']:.5f} ms, host "
+                  f"{t['host_ms']:.5f} ms, kernel {t['kernel_ms']} ms "
+                  f"(device kernels per call {t['device_kernels']}) | plain "
+                  f"{t['plain_ms']:.5f} ms | library {lib} | bound "
+                  f"{t['bound_ms']:.6f} ms ({t['bound_by']})")
+            if name in ("bucketize", "level_histogram"):
+                # one launch per call: K1's or K2's kernel and nothing else
+                want = ("bucketize_kernel" if name == "bucketize"
+                        else "level_hist_kernel")
+                dk = t["device_kernels"]
+                assert not dk or (len(dk) == 1 and want in next(iter(dk))
+                                  and next(iter(dk.values())) == 1), (
+                    f"{name} [{shape}]: device kernels per call {dk}")
+        t = times["bench"]
+        entry = dict(
             name=name, route="cuda", source="gbrl_tpu_torch/csrc/fit.cu",
             replaces=REPLACES[name], launches=launches[name],
-            max_abs_err=errs[name], ms=tot["ms"], plain_ms=tot["plain_ms"],
-            bound_ms=tot["bound_ms"],
-            bound_by="bytes" if tot["t_bytes"] >= tot["t_ops"]
-            else "operations", library_ms=tot["library_ms"]))
-    print("  (level_histogram and level_score: sums over one tree's "
-          f"{DEPTH} levels)")
+            max_abs_err=errs[name], ms=t["call_ms"], plain_ms=t["plain_ms"],
+            bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+            library_ms=t["library_call_ms"], call_ms=t["call_ms"],
+            kernel_ms=t["kernel_ms"],
+            host_ms=t["host_ms"], library_kernel_ms=t["library_kernel_ms"],
+            library_host_ms=t["library_host_ms"])
+        if "ppo" in times:
+            entry["ppo_shape"] = {k: times["ppo"][k] for k in (
+                "call_ms", "host_ms", "kernel_ms", "plain_ms", "bound_ms",
+                "library_call_ms", "library_host_ms", "library_kernel_ms")}
+        kernels.append(entry)
+    print(f"  (level_histogram and level_score: sums over one tree's {DEPTH} "
+          f"levels; bench N={N} F={F}, ppo N={PPO_N} F={PPO_F}; call = one "
+          f"call between CUDA events, host = enqueue time per call, kernel = "
+          f"profiler device time per call)")
     return kernels
 
 

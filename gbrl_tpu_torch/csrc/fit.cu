@@ -13,34 +13,57 @@
 //
 // What bounds them on an H100, and what the design does about it:
 //
-// K1 (bucket = number of candidates strictly below x).  N F B compares
-//   (16.8 M) against 256 KB in and out: operations, far below the card's
-//   rate.  One thread per (n, f) counts `cand < x` over all B from a copy of
-//   the candidate grid in shared memory (rows padded to B + 1 floats so the
-//   features of a warp fall on different banks).  No binary search: the
-//   count is the JAX function by construction, NaN (count 0) and x equal to
-//   a candidate included, so the result is exact.  Wide grids are cut into
-//   feature chunks that fit the shared-memory budget (grid dimension y);
-//   a feature with more candidates than fit is staged in ranges, each
-//   range's count added to the element by the thread that owns it.
+// K1 (bucket = number of candidates strictly below x).  N F inputs and
+//   outputs (256 KB at N = 4096, F = 16) against N F ceil(log2(B + 1))
+//   compares: bytes bound it, and at these sizes the launch itself is most of
+//   the time.  The candidate grid of a feature chunk is staged in shared
+//   memory (rows padded to B + 1 floats so the features of a warp fall on
+//   different banks); a thread takes K1_EPT samples of one feature and runs a
+//   branchless lower-bound search of the row for each (binary lifting: 9
+//   steps at B = 256, the K1_EPT searches interleaved).  The search gives
+//   the count #{b : cand[b] < x} whenever `cand[b] < x` holds on a prefix of
+//   the row, which every grid the port builds satisfies (ascending, NaN last,
+//   +-inf and -0.0 / +0.0 included; a NaN x counts 0), so the result equals
+//   the JAX function bit for bit.  Wide grids are cut into feature chunks
+//   that fit the shared-memory budget (grid dimension y); a feature with more
+//   candidates than fit is staged in ranges, each range's count added to the
+//   element by the thread that owns it.
 //
 // K2 (hist[f, c, b] = sum_n [Xb[n, f] == b] nd[n, c]).  The TPU kernel
-//   contracts a one-hot [N, F * 128k] against nd on the MXU; here the sum is
-//   a scatter.  It must be deterministic: split choice rests on a 2e-6
-//   relative tie band, so run-to-run noise from float atomics would make
-//   tree structure flaky.  So no atomics:
-//     pass 1: a block owns a tile of samples and 64 (f, c) pairs, one per
-//             thread; each thread keeps a private histogram row of the
-//             bucket range in shared memory and adds nd[n, c] into bucket
-//             Xb[n, f] for n in increasing order (it alone writes the row),
-//             then the block writes its rows to partial[tile];
-//     pass 2: out = sum over tiles in tile order, one thread per bin.
-//   The same inputs give the same bits on every launch.  Any C (grid
-//   dimension y) and any number of buckets (bucket ranges, grid dimension z)
-//   run by tiling; zero entries of nd (other nodes' columns) are skipped,
-//   which leaves the sums' bits unchanged.  Bound: bytes (Xb and nd read,
-//   the histogram written); the design is latency-bound on shared-memory
-//   read-modify-writes.
+//   contracts a one-hot [N, F * 128k] against nd on the MXU.  Here that would
+//   multiply 7 zero columns for every useful one at level 3 (nd holds one
+//   node's O + 1 columns per row) and need three bf16 passes for f32
+//   accuracy, about 3.3 GFLOP per level against 262 k adds: the work is
+//   bound by latency and launches, not by FLOPs, so it is a scatter.  It must
+//   be deterministic (split choice rests on a 2e-6 relative tie band), so no
+//   float atomics.  One launch:
+//     - a slice of the output is (fs features, cs columns, br buckets); the
+//       S blocks that share a slice form a thread-block cluster and each
+//       takes one contiguous tile of the samples (rank order = sample
+//       order); each block holds one copy of the slice in shared memory;
+//     - a block walks its tile in sub-tiles of K2_SUB samples: it stages
+//       the sub-tile's bucket ids and its columns of nd with every load in
+//       flight at once, then lists, for each column, the samples whose
+//       entry is nonzero (a ballot per 32 samples), so the work is in
+//       proportion to the nonzero terms; a zero term is skipped, which
+//       leaves a sum's bits as they are (-0.0 included);
+//     - warp w of K2_WARPS owns the (feature, column) pairs w, w + K2_WARPS,
+//       ... of the slice (no two warps write one bin) and takes its
+//       column's list 32 samples at a time; lanes whose buckets are equal
+//       are found with one ballot per bit of the bucket (9 at 257 buckets;
+//       __match_any_sync's cost grows with the number of distinct keys)
+//       and the lowest of them adds the
+//       group's values in lane order, so every bin of a tile is the
+//       sequential sum of its terms in sample order;
+//     - after cluster.sync() block r sums its share of the slice's bins over
+//       the cluster's blocks through distributed shared memory, in rank order
+//       0..S-1, and writes out; a second cluster.sync() keeps every block's
+//       shared memory alive until all have read it.
+//   The launch plan (S, tile, fs, cs, br) comes from the shapes alone
+//   (ops/kernels.py _hist_plan), never from the SM count, so the same
+//   inputs give the same bits on any H100.  Bound: bytes (Xb and nd read,
+//   the histogram written) and the nonzero adds; the kernel is bound by the
+//   latency of its shared-memory read-modify-writes and two cluster barriers.
 //
 // K3 (one level's split choice).  Reads the histogram [F, C, NB] that K2
 //   writes, with no reshuffle.  Two launches:
@@ -61,21 +84,26 @@
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -Xcompiler -fPIC
 // (no fast-math: IEEE division and sqrtf).
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "score.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 constexpr int K1_THREADS = 256;
 constexpr int K1_MAX_BLOCKS = 2048;
-constexpr int K2_THREADS = 64;     // (f, c) pairs per pass-1 block
-constexpr int K2_REDUCE_THREADS = 256;
+constexpr int K1_EPT = 4;          // samples of one feature per thread
+constexpr int K2_WARPS = 16;       // ops/kernels.py HIST_WARPS
+constexpr int K2_THREADS = 32 * K2_WARPS;
+constexpr int K2_SUB = 512;        // samples per staged sub-tile (HIST_SUB)
+constexpr int K2_MAX_CLUSTER = 8;  // HIST_MAX_CLUSTER: the portable size
 constexpr int K3_THREADS = 256;
-
-using gbrl::set_smem;
+constexpr unsigned FULL = 0xffffffffu;
 
 // ------------------------------------------------------------------- K1
 __global__ void __launch_bounds__(K1_THREADS)
@@ -87,71 +115,191 @@ bucketize_kernel(const float* __restrict__ X, const float* __restrict__ cand,
   extern __shared__ float s_cand[];  // [fc][bc + 1]
   const int f0 = blockIdx.y * fc;
   const int nf = min(fc, F - f0);
-  const size_t total = (size_t)N * nf;
+  const size_t groups = (size_t)((N + K1_EPT - 1) / K1_EPT) * nf;
   for (int b0 = 0; b0 < B; b0 += bc) {
     const int nb = min(bc, B - b0);
+    int top = 1;                       // the largest power of two <= nb
+    while (2 * top <= nb) top *= 2;
     __syncthreads();
+#pragma unroll 8
     for (int i = threadIdx.x; i < nf * nb; i += K1_THREADS) {
       const int r = i / nb, b = i - r * nb;
       s_cand[r * (bc + 1) + b] = cand[(size_t)(f0 + r) * B + b0 + b];
     }
     __syncthreads();
-    for (size_t i = (size_t)blockIdx.x * K1_THREADS + threadIdx.x;
-         i < total; i += (size_t)gridDim.x * K1_THREADS) {
-      const size_t n = i / nf;
-      const int r = (int)(i - n * nf);
-      const size_t at = n * F + f0 + r;
-      const float x = X[at];
+    for (size_t g = (size_t)blockIdx.x * K1_THREADS + threadIdx.x; g < groups;
+         g += (size_t)gridDim.x * K1_THREADS) {
+      const size_t q = g / nf;
+      const int r = (int)(g - q * nf);
       const float* c = s_cand + r * (bc + 1);
-      int cnt = 0;
-      for (int b = 0; b < nb; ++b) cnt += c[b] < x ? 1 : 0;
-      out[at] = b0 == 0 ? cnt : out[at] + cnt;
+      float x[K1_EPT];
+      int pos[K1_EPT];
+#pragma unroll
+      for (int e = 0; e < K1_EPT; ++e) {
+        const size_t n = q * K1_EPT + e;
+        x[e] = n < (size_t)N ? X[n * F + f0 + r] : NAN;
+        pos[e] = 0;
+      }
+      // binary lifting: pos grows to the length of the prefix on which
+      // c[b] < x holds (NaN x: no step is taken)
+      for (int step = top; step > 0; step >>= 1) {
+#pragma unroll
+        for (int e = 0; e < K1_EPT; ++e) {
+          const int p = pos[e] + step;
+          if (p <= nb && c[p - 1] < x[e]) pos[e] = p;
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < K1_EPT; ++e) {
+        const size_t n = q * K1_EPT + e;
+        if (n < (size_t)N) {
+          const size_t at = n * F + f0 + r;
+          out[at] = b0 == 0 ? pos[e] : out[at] + pos[e];
+        }
+      }
     }
   }
 }
 
 // ------------------------------------------------------------------- K2
-__global__ void __launch_bounds__(K2_THREADS)
-level_hist_partial_kernel(const int32_t* __restrict__ Xb,
-                          const float* __restrict__ nd,
-                          float* __restrict__ part, int N, int F, int C,
-                          int NB, int tile, int BR) {
-  extern __shared__ float rows[];  // [K2_THREADS][BR]
-  const int FC = F * C;
-  const int j0 = blockIdx.y * K2_THREADS;
-  const int j = j0 + threadIdx.x;
-  const int b0 = blockIdx.z * BR;
-  const int br = min(BR, NB - b0);
-  float* row = rows + threadIdx.x * BR;
-  for (int b = 0; b < br; ++b) row[b] = 0.0f;
-  if (j < FC) {
-    const int f = j / C, c = j - f * C;
-    const int n0 = blockIdx.x * tile, n1 = min(N, n0 + tile);
-    for (int n = n0; n < n1; ++n) {
-      const float v = nd[(size_t)n * C + c];
-      const int b = Xb[(size_t)n * F + f] - b0;
-      // a zero term would leave the row's bits as they are: skip it
-      if (v != 0.0f && (unsigned)b < (unsigned)br) row[b] += v;
-    }
-  }
-  __syncthreads();
-  const int jn = min(K2_THREADS, FC - j0);
-  float* dst = part + ((size_t)blockIdx.x * FC + j0) * NB + b0;
-  for (int i = threadIdx.x; i < jn * br; i += K2_THREADS) {
-    const int r = i / br, b = i - r * br;
-    dst[(size_t)r * NB + b] = rows[r * BR + b];
-  }
+// Shared memory of one block: the slice [fs][cs][br] f32 (padded to a
+// multiple of 4 for the float4 reads of the reduction), the sub-tile's rows
+// of nd [K2_SUB][cs + 1] f32 (padded against bank conflicts), the warps'
+// scratch [K2_WARPS][32] f32, the columns' list lengths [cs] i32, the
+// sub-tile's bucket ids [K2_SUB][fs] i32 and the columns' sample lists
+// [cs][K2_SUB] u16.
+__host__ __device__ inline size_t k2_hist_words(int fs, int cs, int br) {
+  return ((size_t)fs * cs * br + 3) & ~(size_t)3;
+}
+__host__ __device__ inline size_t k2_smem_bytes(int fs, int cs, int br) {
+  return 4 * (k2_hist_words(fs, cs, br) + (size_t)K2_SUB * (cs + 1) +
+              32 * K2_WARPS + cs + (size_t)K2_SUB * fs) +
+         2 * (size_t)K2_SUB * cs;
 }
 
-__global__ void __launch_bounds__(K2_REDUCE_THREADS)
-level_hist_reduce_kernel(const float* __restrict__ part,
-                         float* __restrict__ out, int n_tiles, size_t M) {
-  for (size_t i = (size_t)blockIdx.x * K2_REDUCE_THREADS + threadIdx.x; i < M;
-       i += (size_t)gridDim.x * K2_REDUCE_THREADS) {
-    float s = 0.0f;
-    for (int t = 0; t < n_tiles; ++t) s += part[(size_t)t * M + i];
-    out[i] = s;
+__global__ void __launch_bounds__(K2_THREADS)
+level_hist_kernel(const int32_t* __restrict__ Xb,
+                  const float* __restrict__ nd, float* __restrict__ out,
+                  int N, int F, int C, int NB, int tile, int fs, int cs,
+                  int br) {
+  extern __shared__ __align__(16) float sm[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int f0 = (int)(blockIdx.x / S) * fs, nfs = min(fs, F - f0);
+  const int c0 = blockIdx.y * cs, ncs = min(cs, C - c0);
+  const int b0 = blockIdx.z * br, nbr = min(br, NB - b0);
+  const int hw = (int)k2_hist_words(fs, cs, br), ndw = cs + 1;
+  float* hist = sm;                                   // [fs][cs][br]
+  float* s_nd = sm + hw;                              // [K2_SUB][cs + 1]
+  float* s_scr = s_nd + K2_SUB * ndw;                 // [K2_WARPS][32]
+  int* s_cnt = (int*)(s_scr + 32 * K2_WARPS);         // [cs]
+  int* s_xb = s_cnt + cs;                             // [K2_SUB][fs]
+  uint16_t* s_list = (uint16_t*)(s_xb + K2_SUB * fs); // [cs][K2_SUB]
+  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
+  float* scr = s_scr + 32 * w;
+
+  for (int i = tid; i < hw / 4; i += K2_THREADS)
+    reinterpret_cast<float4*>(hist)[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  // lanes with equal buckets are found by one ballot per bit of the bucket
+  const int kbits = nbr > 1 ? 32 - __clz(nbr - 1) : 0;
+  const int n0 = rank * tile, n1 = min(N, n0 + tile);
+  for (int s0 = n0; s0 < n1; s0 += K2_SUB) {
+    const int ns = min(K2_SUB, n1 - s0);
+    // stage the sub-tile: every load independent, several in flight
+#pragma unroll 4
+    for (int i = tid; i < ns * nfs; i += K2_THREADS) {
+      const int n = i / nfs, j = i - n * nfs;
+      s_xb[n * fs + j] = Xb[(size_t)(s0 + n) * F + f0 + j] - b0;
+    }
+#pragma unroll 4
+    for (int i = tid; i < ns * ncs; i += K2_THREADS) {
+      const int n = i / ncs, c = i - n * ncs;
+      s_nd[n * ndw + c] = nd[(size_t)(s0 + n) * C + c0 + c];
+    }
+    __syncthreads();
+    // each column's list of the samples whose entry is nonzero, in sample
+    // order (a ballot per 32 samples)
+    for (int c = w; c < ncs; c += K2_WARPS) {
+      int cnt = 0;
+      for (int m0 = 0; m0 < ns; m0 += 32) {
+        const int n = m0 + lane;
+        const bool nz = n < ns && s_nd[n * ndw + c] != 0.0f;
+        const unsigned bal = __ballot_sync(FULL, nz);
+        if (nz)
+          s_list[c * K2_SUB + cnt + __popc(bal & ((1u << lane) - 1u))] =
+              (uint16_t)n;
+        cnt += __popc(bal);
+      }
+      if (lane == 0) s_cnt[c] = cnt;
+    }
+    __syncthreads();
+    // warp w owns the (feature, column) pairs w, w + K2_WARPS, ...: it alone
+    // writes their bins; lanes with equal buckets are added in lane order
+    for (int p = w; p < nfs * ncs; p += K2_WARPS) {
+      const int j = p / ncs, c = p - j * ncs;
+      float* row = hist + ((size_t)j * cs + c) * br;
+      const uint16_t* list = s_list + c * K2_SUB;
+      const int len = s_cnt[c];
+      for (int i0 = 0; i0 < len; i0 += 32) {
+        const int i = i0 + lane;
+        int key = -1;
+        float v = 0.0f;
+        if (i < len) {
+          const int n = list[i];
+          const int bl = s_xb[n * fs + j];
+          v = s_nd[n * ndw + c];
+          if ((unsigned)bl < (unsigned)nbr) key = bl;
+        }
+        scr[lane] = v;
+        unsigned grp = __ballot_sync(FULL, key >= 0);
+        for (int b = 0; b < kbits; ++b) {
+          const bool bit = (key >> b) & 1;
+          const unsigned m = __ballot_sync(FULL, bit);
+          grp &= bit ? m : ~m;
+        }
+        __syncwarp();
+        if (key >= 0 && lane == __ffs(grp) - 1) {
+          float acc = row[key];
+          for (unsigned m = grp; m; m &= m - 1u) acc += scr[__ffs(m) - 1];
+          row[key] = acc;
+        }
+        __syncwarp();
+      }
+    }
+    __syncthreads();
   }
+  cluster.sync();
+  // this block's share of the slice, summed over the ranks in rank order
+  const int q4 = hw / 4, per = (q4 + S - 1) / S;
+  const int qa = rank * per, qb = min(q4, qa + per);
+  const int rowlen = cs * br;
+  for (int q = qa + tid; q < qb; q += K2_THREADS) {
+    float4 v[K2_MAX_CLUSTER];
+#pragma unroll
+    for (int r = 0; r < K2_MAX_CLUSTER; ++r)
+      if (r < S) v[r] = cluster.map_shared_rank((const float4*)sm, r)[q];
+    float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+    for (int r = 0; r < K2_MAX_CLUSTER; ++r) {
+      if (r < S) {
+        acc.x += v[r].x;
+        acc.y += v[r].y;
+        acc.z += v[r].z;
+        acc.w += v[r].w;
+      }
+    }
+    const float vals[4] = {acc.x, acc.y, acc.z, acc.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int flat = 4 * q + k;
+      const int j = flat / rowlen, rem = flat - j * rowlen;
+      const int c = rem / br, bl = rem - c * br;
+      if (j < nfs && c < ncs && bl < nbr)
+        out[((size_t)(f0 + j) * C + c0 + c) * NB + b0 + bl] = vals[k];
+    }
+  }
+  cluster.sync();
 }
 
 // ------------------------------------------------------------------- K3
@@ -198,34 +346,64 @@ level_argmax_kernel(const float* __restrict__ adj,
 
 int last_error() { return (int)cudaGetLastError(); }
 
+// K2's launch: the grid of clusters of S blocks along x.
+cudaLaunchConfig_t k2_config(int n_slices, int n_col, int n_br, int S, int fs,
+                             int cs, int br, cudaLaunchAttribute* attr,
+                             void* stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(n_slices * S), (unsigned)n_col,
+                     (unsigned)n_br);
+  cfg.blockDim = dim3(K2_THREADS);
+  cfg.dynamicSmemBytes = k2_smem_bytes(fs, cs, br);
+  cfg.stream = (cudaStream_t)stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = (unsigned)S;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory of one K1 / K2 / K3 block; the wrapper sizes the
-// feature chunk, the candidate and bucket ranges and checks the device's
-// limit with these.
-size_t gbrl_k1_smem_bytes(int fc, int bc) {
-  return sizeof(float) * (size_t)fc * (bc + 1);
+// Once per device and process: allows K1, K2 and K3 up to `bytes` of
+// dynamic shared memory (the device's opt-in maximum), so no launch sets the
+// attribute again.
+int gbrl_fit_prepare(int bytes) {
+  const void* kernels[] = {(const void*)bucketize_kernel,
+                           (const void*)level_hist_kernel,
+                           (const void*)level_score_kernel};
+  for (const void* k : kernels) {
+    const int err = (int)cudaFuncSetAttribute(
+        k, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err) return err;
+  }
+  return 0;
 }
-size_t gbrl_k2_smem_bytes(int br) {
-  return sizeof(float) * (size_t)K2_THREADS * br;
-}
-size_t gbrl_k3_smem_bytes(int O, int NB) {
-  return sizeof(float) * gbrl::score_smem_floats(O, NB);
-}
-int gbrl_k2_block_pairs() { return K2_THREADS; }
 
-// X [N, F] f32, cand [F, B] f32 ascending per row, out [N, F] i32.
-// fc: features per block; bc: candidates per staged range (fc rows of bc
-// candidates fit the shared memory).
+// How many clusters of S K2 blocks with this slice the device can hold at
+// once (>= 1 when the launch can run), or -(CUDA error).
+int gbrl_k2_max_clusters(int S, int fs, int cs, int br) {
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = k2_config(1, 1, 1, S, fs, cs, br, &attr,
+                                           nullptr);
+  int n = 0;
+  const int err = (int)cudaOccupancyMaxActiveClusters(
+      &n, (const void*)level_hist_kernel, &cfg);
+  return err ? -err : n;
+}
+
+// X [N, F] f32, cand [F, B] f32 (c < x holding on a prefix of each row),
+// out [N, F] i32.  fc: features per block; bc: candidates per staged range
+// (fc rows of bc + 1 floats fit the shared memory).
 int gbrl_k1_bucketize(const float* X, const float* cand, int32_t* out, int N,
                       int F, int B, int fc, int bc, void* stream) {
-  const size_t bytes = gbrl_k1_smem_bytes(fc, bc);
-  int err = set_smem((const void*)bucketize_kernel, bytes);
-  if (err) return err;
-  const size_t per_chunk = (size_t)N * fc;
-  size_t blocks = (per_chunk + K1_THREADS - 1) / K1_THREADS;
+  const size_t bytes = sizeof(float) * (size_t)fc * (bc + 1);
+  const size_t groups = (size_t)((N + K1_EPT - 1) / K1_EPT) * fc;
+  size_t blocks = (groups + K1_THREADS - 1) / K1_THREADS;
   if (blocks > K1_MAX_BLOCKS) blocks = K1_MAX_BLOCKS;
   if (blocks < 1) blocks = 1;
   const dim3 grid((unsigned)blocks, (unsigned)((F + fc - 1) / fc));
@@ -235,28 +413,18 @@ int gbrl_k1_bucketize(const float* X, const float* cand, int32_t* out, int N,
 }
 
 // Xb [N, F] i32, nd [N, C] f32 -> out [F, C, NB] f32 (layout [F * C][NB]).
-// part: scratch [n_tiles, F * C, NB] (unused and may be out when
-// n_tiles == 1); tile: samples per pass-1 block; BR: buckets per range.
-int gbrl_k2_level_histogram(const int32_t* Xb, const float* nd, float* part,
-                            float* out, int N, int F, int C, int NB, int tile,
-                            int n_tiles, int BR, void* stream) {
-  const size_t bytes = gbrl_k2_smem_bytes(BR);
-  int err = set_smem((const void*)level_hist_partial_kernel, bytes);
-  if (err) return err;
-  float* dst = n_tiles == 1 ? out : part;
-  const dim3 grid((unsigned)n_tiles,
-                  (unsigned)((F * C + K2_THREADS - 1) / K2_THREADS),
-                  (unsigned)((NB + BR - 1) / BR));
-  level_hist_partial_kernel<<<grid, K2_THREADS, bytes, (cudaStream_t)stream>>>(
-      Xb, nd, dst, N, F, C, NB, tile, BR);
-  err = last_error();
-  if (err || n_tiles == 1) return err;
-  const size_t M = (size_t)F * C * NB;
-  size_t blocks = (M + K2_REDUCE_THREADS - 1) / K2_REDUCE_THREADS;
-  if (blocks > 4096) blocks = 4096;
-  level_hist_reduce_kernel<<<(unsigned)blocks, K2_REDUCE_THREADS, 0,
-                             (cudaStream_t)stream>>>(part, out, n_tiles, M);
-  return last_error();
+// The plan (ops/kernels.py _hist_plan): S blocks per cluster, tile samples
+// per block, slices of fs features x cs columns x br buckets.
+int gbrl_k2_level_histogram(const int32_t* Xb, const float* nd, float* out,
+                            int N, int F, int C, int NB, int S, int tile,
+                            int fs, int cs, int br, void* stream) {
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      k2_config((F + fs - 1) / fs, (C + cs - 1) / cs, (NB + br - 1) / br, S,
+                fs, cs, br, &attr, stream);
+  const int err = (int)cudaLaunchKernelEx(&cfg, level_hist_kernel, Xb, nd,
+                                          out, N, F, C, NB, tile, fs, cs, br);
+  return err ? err : last_error();
 }
 
 // hist [F, n_nodes * (O + 1), NB] f32; blocked [n_nodes, F, B] u8;
@@ -269,14 +437,12 @@ int gbrl_k3_level_score(const float* hist, const uint8_t* blocked,
                         int n_nodes, int O, int NB, int B, int cosine,
                         float min_data, int oblivious, int is_root,
                         void* stream) {
-  const size_t bytes = gbrl_k3_smem_bytes(O, NB);
-  int err = set_smem((const void*)level_score_kernel, bytes);
-  if (err) return err;
+  const size_t bytes = sizeof(float) * gbrl::score_smem_floats(O, NB);
   level_score_kernel<<<dim3((unsigned)F, (unsigned)n_nodes), K3_THREADS, bytes,
                        (cudaStream_t)stream>>>(hist, blocked, feat_w, adj,
                                                stats, F, O, NB, B, cosine,
                                                min_data, oblivious, is_root);
-  err = last_error();
+  int err = last_error();
   if (err) return err;
   level_argmax_kernel<<<oblivious ? 1 : n_nodes, K3_THREADS, 0,
                         (cudaStream_t)stream>>>(adj, stats, best_idx, best_val,

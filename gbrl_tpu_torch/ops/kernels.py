@@ -25,7 +25,7 @@ checkout, under ``$GBRL_TPU_TORCH_BUILD_DIR`` if that is set, and otherwise
 A wrapper given CPU tensors runs the plain version.  Given CUDA tensors it
 launches the kernel or raises: it never falls back.  Each wrapper counts its
 calls that launch on the card in ``launch_counts`` (one per call, although
-K2 and K3 each launch two kernels; the CPU branch does not count).
+K3 launches two kernels; the CPU branch does not count).
 """
 from __future__ import annotations
 
@@ -37,7 +37,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Callable, Union
+from typing import Callable, NamedTuple, Union
 
 import torch
 
@@ -224,20 +224,16 @@ def _library() -> ctypes.CDLL:
     lib.gbrl_cuda_error_string.argtypes = [i32]
     lib.gbrl_cuda_error_string.restype = ctypes.c_char_p
     size = ctypes.c_size_t
+    lib.gbrl_fit_prepare.argtypes = [i32]
     lib.gbrl_k1_bucketize.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
-    lib.gbrl_k2_level_histogram.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
+    lib.gbrl_k2_level_histogram.argtypes = [ptr] * 3 + [i32] * 9 + [ptr]
+    lib.gbrl_k2_max_clusters.argtypes = [i32] * 4
     lib.gbrl_k3_level_score.argtypes = ([ptr] * 7 + [i32] * 6
                                         + [ctypes.c_float, i32, i32, ptr])
-    for name in ("gbrl_k1_bucketize", "gbrl_k2_level_histogram",
-                 "gbrl_k3_level_score", "gbrl_k2_block_pairs"):
+    for name in ("gbrl_fit_prepare", "gbrl_k1_bucketize",
+                 "gbrl_k2_level_histogram", "gbrl_k2_max_clusters",
+                 "gbrl_k3_level_score"):
         getattr(lib, name).restype = i32
-    lib.gbrl_k2_block_pairs.argtypes = []
-    lib.gbrl_k1_smem_bytes.argtypes = [i32, i32]
-    lib.gbrl_k2_smem_bytes.argtypes = [i32]
-    lib.gbrl_k3_smem_bytes.argtypes = [i32, i32]
-    for name in ("gbrl_k1_smem_bytes", "gbrl_k2_smem_bytes",
-                 "gbrl_k3_smem_bytes"):
-        getattr(lib, name).restype = size
     lib.gbrl_k6_tree_build.argtypes = ([ptr] * 14 + [i32] * 8
                                        + [ctypes.c_float, i32, ptr])
     lib.gbrl_k6_tree_build.restype = i32
@@ -287,7 +283,7 @@ def _chunk(lib, device: torch.device, F: int, K: int, max_depth: int,
     while C > group and lib.gbrl_leaf_sum_smem_bytes(F, C, K, max_depth,
                                                       O) > SMEM_BUDGET:
         C //= 2
-    _smem_fits(lib, device, lib.gbrl_leaf_sum_smem_bytes(F, C, K, max_depth, O),
+    _smem_fits(device, lib.gbrl_leaf_sum_smem_bytes(F, C, K, max_depth, O),
                f"the predict kernel at F={F}, depth={max_depth}, O={O} "
                f"(chunk of {C} trees)")
     return C
@@ -343,13 +339,24 @@ def oblivious_leaf_sum_cuda(X: torch.Tensor, feat: torch.Tensor,
 
 
 # ================================================================ fit path
-# K1-K3 (csrc/fit.cu).  Shared memory a K1 / K2 block may use; K3's need is
-# set by O and the bucket count.
+# K1-K3 (csrc/fit.cu).  Shared memory a K1 block may use; K3's need is set
+# by O and the bucket count.
 FIT_SMEM_BUDGET = 96 * 1024
-# K2's pass 1 aims for about two blocks per SM of an H100 (132 SMs) and
-# never gives a block fewer than HIST_MIN_TILE samples
+# K6's sample tiles aim for about two blocks per SM of an H100 (132 SMs) and
+# never give a block fewer than HIST_MIN_TILE samples
 HIST_TARGET_BLOCKS = 264
 HIST_MIN_TILE = 64
+# K2's launch plan (fit.cu K2_WARPS, K2_SUB): warps per block, samples per
+# staged sub-tile; HIST_FEATS features per slice; at most HIST_MAX_CLUSTER
+# blocks (the portable cluster size) share a slice, each with at least
+# HIST_MIN_TILE samples; a slice holds at most HIST_COL_CAP columns, so deep
+# levels spread over more blocks; HIST_SMEM_BUDGET bytes per block
+HIST_WARPS = 16
+HIST_SUB = 512
+HIST_FEATS = 4
+HIST_MAX_CLUSTER = 8
+HIST_COL_CAP = 4
+HIST_SMEM_BUDGET = 160 * 1024
 # rows per chunk of the plain bucketize (bounds its [rows, F, B] compare)
 PLAIN_BUCKETIZE_ELEMS = 1 << 22
 
@@ -482,8 +489,14 @@ def level_score_plain(hist: torch.Tensor, blocked: torch.Tensor,
 
 
 def _fit_check(named: dict, want: dict) -> torch.device:
-    dev = next(iter(named.values())).device
+    dev = None
     for name, t in named.items():
+        dt, nd = want[name]
+        if (isinstance(t, torch.Tensor) and t.dtype == dt and t.dim() == nd
+                and t.is_contiguous() and (dev is None or t.device == dev)):
+            dev = dev or t.device
+            continue
+        dev = dev or getattr(t, "device", None)
         if not isinstance(t, torch.Tensor) or t.device != dev:
             raise ValueError(f"{name} must be a tensor on {dev}")
         if not t.is_contiguous():
@@ -496,28 +509,74 @@ def _fit_check(named: dict, want: dict) -> torch.device:
     return dev
 
 
-def _smem_fits(lib, dev: torch.device, need: int, what: str) -> None:
-    limit = lib.gbrl_max_smem_optin(dev.index if dev.index is not None
-                                    else torch.cuda.current_device())
+def _index(dev: torch.device) -> int:
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
+@functools.lru_cache(maxsize=None)
+def _smem_limit(index: int) -> int:
+    """The most dynamic shared memory a block may opt in to on the device,
+    queried once per device."""
+    limit = _library().gbrl_max_smem_optin(index)
     if limit < 0:
         raise RuntimeError("cannot query the device's shared-memory limit")
+    return limit
+
+
+@functools.lru_cache(maxsize=None)
+def _fit_ready(index: int) -> None:
+    """Once per device: K1-K3 may use up to the device's opt-in shared
+    memory, so no launch sets the attribute again."""
+    lib = _library()
+    with torch.cuda.device(index):
+        rc = lib.gbrl_fit_prepare(_smem_limit(index))
+    if rc != 0:
+        raise RuntimeError(f"gbrl_fit_prepare failed: CUDA error {rc} "
+                           f"({lib.gbrl_cuda_error_string(rc).decode()})")
+
+
+def _smem_fits(dev: torch.device, need: int, what: str) -> None:
+    limit = _smem_limit(_index(dev))
     if need > limit:
         raise ValueError(f"{what} needs {need} B of shared memory per block, "
                          f"more than the device's {limit} B")
 
 
 def _call(lib, fn_name: str, dev: torch.device, *args) -> None:
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    """One ctypes call that launches on ``dev``'s current stream (entering
+    the device's context only when it is not the current device)."""
+    index = _index(dev)
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if index == torch.cuda.current_device():
         rc = getattr(lib, fn_name)(*args, stream)
+    else:
+        with torch.cuda.device(index):
+            rc = getattr(lib, fn_name)(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{fn_name} failed: CUDA error {rc} "
                            f"({lib.gbrl_cuda_error_string(rc).decode()})")
 
 
+@functools.lru_cache(maxsize=256)
+def _bucketize_ready(index: int, F: int, B: int):
+    """K1's (features per block, candidates per staged range), once per
+    device and shape: whole candidate rows when one fits FIT_SMEM_BUDGET,
+    else one feature per block with its candidates staged in ranges; checks
+    the device's limit and readies the fit kernels."""
+    bc = min(B, FIT_SMEM_BUDGET // 4 - 1)
+    fc = min(F, FIT_SMEM_BUDGET // (4 * (bc + 1)))
+    _smem_fits(torch.device("cuda", index), 4 * fc * (bc + 1), "bucketize")
+    _fit_ready(index)
+    return fc, bc
+
+
 def bucketize_cuda(X: torch.Tensor, cand_vals: torch.Tensor) -> torch.Tensor:
-    """K1: [N, F] f32 x [F, B] f32 (ascending per row) -> [N, F] int32
-    bucket ids, the number of candidates strictly below x."""
+    """K1: [N, F] f32 x [F, B] f32 -> [N, F] int32 bucket ids, the number of
+    candidates strictly below x.  Each row must be ascending in the sense
+    that ``cand[f, b] < x`` holds on a prefix of the row for every x: the
+    kernel searches the row (a lower bound) where the plain version counts.
+    Every grid the port builds is so (quantile and uniform, NaN last, +-inf
+    and -0.0 / +0.0 included); a NaN x counts 0."""
     if X.device.type == "cpu":
         return bucketize_plain(X, cand_vals)
     dev = _fit_check(dict(X=X, cand_vals=cand_vals),
@@ -531,36 +590,83 @@ def bucketize_cuda(X: torch.Tensor, cand_vals: torch.Tensor) -> torch.Tensor:
     out = torch.empty((N, F), dtype=torch.int32, device=dev)
     if N == 0 or F == 0:
         return out
-    # whole candidate rows when one fits FIT_SMEM_BUDGET, else one feature
-    # per block with its candidates staged in ranges
-    bc = min(B, FIT_SMEM_BUDGET // 4 - 1)
-    fc = min(F, FIT_SMEM_BUDGET // (4 * (bc + 1)))
-    _smem_fits(lib, dev, lib.gbrl_k1_smem_bytes(fc, bc), "bucketize")
+    fc, bc = _bucketize_ready(_index(dev), F, B)
     _call(lib, "gbrl_k1_bucketize", dev, X.data_ptr(), cand_vals.data_ptr(),
           out.data_ptr(), N, F, B, fc, bc)
     launch_counts["bucketize"] += 1
     return out
 
 
-def _hist_tiling(N: int, F: int, C: int, n_buckets: int, pairs: int):
-    """K2's launch shape -> (samples per tile, tiles, buckets per range):
-    bucket ranges that fit FIT_SMEM_BUDGET, then enough sample tiles for
-    about HIST_TARGET_BLOCKS pass-1 blocks."""
-    BR = min(n_buckets, FIT_SMEM_BUDGET // (4 * pairs))
-    jblocks = -(-(F * C) // pairs)
-    bchunks = -(-n_buckets // BR)
-    n_tiles = max(1, min(-(-N // HIST_MIN_TILE),
-                         -(-HIST_TARGET_BLOCKS // (jblocks * bchunks))))
-    tile = -(-N // n_tiles)
-    return tile, -(-N // tile), BR
+class HistPlan(NamedTuple):
+    """K2's launch plan: clusters of ``S`` blocks share a slice of ``fs``
+    features x ``cs`` columns x ``br`` buckets, block r taking samples
+    [r * tile, (r + 1) * tile); ``grid`` = (slices of features x S, column
+    chunks, bucket ranges); ``smem`` bytes per block (fit.cu
+    k2_smem_bytes)."""
+    S: int
+    tile: int
+    fs: int
+    cs: int
+    br: int
+    grid: tuple
+    smem: int
+
+
+def _hist_smem(fs: int, cs: int, br: int) -> int:
+    hist = -(-(fs * cs * br) // 4) * 4          # padded for float4 reads
+    return (4 * (hist + HIST_SUB * (cs + 1) + 32 * HIST_WARPS + cs
+                 + HIST_SUB * fs) + 2 * HIST_SUB * cs)
+
+
+@functools.lru_cache(maxsize=256)
+def _hist_plan(N: int, F: int, C: int, n_buckets: int) -> HistPlan:
+    """K2's launch plan from the shapes alone (never from the SM count, so
+    the same inputs give the same bits on any card): the cluster grows by
+    powers of two up to HIST_MAX_CLUSTER while each block keeps at least
+    HIST_MIN_TILE samples; HIST_FEATS features a slice; as many columns (up
+    to HIST_COL_CAP) as fit the budget with every bucket, else one column
+    and bucket ranges that fit."""
+    S = 1
+    while S < HIST_MAX_CLUSTER and 2 * S * HIST_MIN_TILE <= N:
+        S *= 2
+    tile = max(1, -(-N // S))
+    fs = min(F, HIST_FEATS)
+    br = n_buckets
+    cs = min(C, HIST_COL_CAP)
+    while cs > 1 and _hist_smem(fs, cs, br) > HIST_SMEM_BUDGET:
+        cs -= 1
+    if _hist_smem(fs, cs, br) > HIST_SMEM_BUDGET:
+        fixed = _hist_smem(fs, cs, 0)
+        br = max(1, ((HIST_SMEM_BUDGET - fixed) // (4 * fs * cs)) // 4 * 4)
+    grid = (-(-F // fs) * S, -(-C // cs), -(-n_buckets // br))
+    return HistPlan(S, tile, fs, cs, br, grid, _hist_smem(fs, cs, br))
+
+
+@functools.lru_cache(maxsize=256)
+def _hist_ready(index: int, plan: HistPlan) -> None:
+    """Once per device and plan: the grid's limits, the device's
+    shared-memory limit, the fit kernels readied, and the cluster checked
+    with the device (raises when it refuses it)."""
+    if max(plan.grid[1:]) > 65535 or plan.grid[0] >= 1 << 31:
+        raise ValueError(f"level_histogram: grid {plan.grid} too large")
+    lib = _library()
+    _smem_fits(torch.device("cuda", index), plan.smem, "level_histogram")
+    _fit_ready(index)
+    with torch.cuda.device(index):
+        n = lib.gbrl_k2_max_clusters(plan.S, plan.fs, plan.cs, plan.br)
+    if n < 1:
+        raise RuntimeError(f"level_histogram: the device cannot run a "
+                           f"cluster of {plan.S} blocks with {plan.smem} B of "
+                           f"shared memory each (query returned {n})")
 
 
 def level_histogram_cuda(Xb: torch.Tensor, nd: torch.Tensor,
                          n_buckets: int) -> torch.Tensor:
     """K2: [N, F] int32 bucket ids x [N, C] f32 rows -> [F, C, n_buckets]
-    f32 with ``hist[f, c, b] = sum_n [Xb[n, f] == b] * nd[n, c]``.  The
-    caller packs node-masked gradient columns into ``nd`` (C = n_nodes *
-    (O + 1)).  Deterministic: the same inputs give the same bits."""
+    f32 with ``hist[f, c, b] = sum_n [Xb[n, f] == b] * nd[n, c]`` (bucket
+    ids outside [0, n_buckets) add nothing).  The caller packs node-masked
+    gradient columns into ``nd`` (C = n_nodes * (O + 1)).  One launch;
+    deterministic: the same inputs give the same bits."""
     if Xb.device.type == "cpu":
         return level_histogram_plain(Xb, nd, n_buckets)
     dev = _fit_check(dict(Xb=Xb, nd=nd),
@@ -573,18 +679,12 @@ def level_histogram_cuda(Xb: torch.Tensor, nd: torch.Tensor,
     lib = _library()
     if N == 0 or F == 0 or C == 0:
         return torch.zeros((F, C, n_buckets), dtype=torch.float32, device=dev)
-    pairs = lib.gbrl_k2_block_pairs()
-    tile, n_tiles, BR = _hist_tiling(N, F, C, n_buckets, pairs)
-    if -(-(F * C) // pairs) > 65535:
-        raise ValueError(f"level_histogram takes at most {65535 * pairs} "
-                         f"(feature, column) pairs, got {F * C}")
-    _smem_fits(lib, dev, lib.gbrl_k2_smem_bytes(BR), "level_histogram")
+    plan = _hist_plan(N, F, C, n_buckets)
+    _hist_ready(_index(dev), plan)
     out = torch.empty((F, C, n_buckets), dtype=torch.float32, device=dev)
-    part = (torch.empty((n_tiles, F * C, n_buckets), dtype=torch.float32,
-                        device=dev) if n_tiles > 1 else out)
     _call(lib, "gbrl_k2_level_histogram", dev, Xb.data_ptr(), nd.data_ptr(),
-          part.data_ptr(), out.data_ptr(), N, F, C, n_buckets, tile, n_tiles,
-          BR)
+          out.data_ptr(), N, F, C, n_buckets, plan.S, plan.tile, plan.fs,
+          plan.cs, plan.br)
     launch_counts["level_histogram"] += 1
     return out
 
@@ -615,7 +715,9 @@ def level_score_cuda(hist: torch.Tensor, blocked: torch.Tensor,
         raise ValueError(f"level_score takes at most 65535 nodes, got "
                          f"{n_nodes}")
     lib = _library()
-    _smem_fits(lib, dev, lib.gbrl_k3_smem_bytes(O, NB), "level_score")
+    # fit.cu score_smem_floats: prefix sums [O + 1][NB] and node totals
+    _smem_fits(dev, 4 * ((O + 1) * NB + O + 1), "level_score")
+    _fit_ready(_index(dev))
     f32 = dict(dtype=torch.float32, device=dev)
     adj = torch.empty((n_nodes, F * n_bins), **f32)
     stats = torch.empty((n_nodes, O + 2), **f32)
@@ -771,7 +873,7 @@ def tree_build_cuda(Xb: torch.Tensor, cand: torch.Tensor, feat_w: torch.Tensor,
     if not 1 <= D or (1 << (D - 1)) > NPMAX:
         raise ValueError(f"tree_build takes depths 1 to 4, got {D}")
     lib = _library()
-    _smem_fits(lib, dev, lib.gbrl_k6_smem_bytes(O, B, D), "tree_build")
+    _smem_fits(dev, lib.gbrl_k6_smem_bytes(O, B, D), "tree_build")
     f32 = dict(dtype=torch.float32, device=dev)
     C = (1 << (D - 1)) * K
     part = torch.empty((n_tiles, F, C, B + 1), **f32)

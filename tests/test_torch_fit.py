@@ -87,6 +87,65 @@ def test_bucketize_plain_matches_jax_and_pallas(n, f, b):
         tcand.bucketize(_t(X), _t(cand)).numpy(), got)
 
 
+def _special_columns(rng, n):
+    """Columns with +-inf, NaN, -0.0 / +0.0 mixes and constant values."""
+    X = rng.normal(size=(n, 6)).astype(np.float32)
+    X[::7, 0] = np.inf
+    X[::11, 0] = -np.inf
+    X[::5, 1] = np.nan
+    X[:, 2] = np.where(rng.random(n) < 0.5, -0.0, 0.0)
+    X[::3, 2] = rng.normal(size=len(X[::3, 2]))
+    X[:, 3] = 1.5
+    X[::9, 4] = np.inf
+    X[:, 5] = np.where(rng.random(n) < 0.5, -0.0, 0.0)
+    return X
+
+
+def _search(cand, X):
+    """K1's search (csrc/fit.cu bucketize_kernel) in numpy: binary lifting
+    to the length of the prefix of the row on which ``cand < x`` holds."""
+    B = cand.shape[1]
+    top = 1 << (B.bit_length() - 1)
+    pos = np.zeros(X.shape, np.int32)
+    f = np.arange(X.shape[1])[None, :]
+    step = top
+    while step:
+        p = pos + step
+        ok = p <= B
+        pos = np.where(ok & (cand[f, np.minimum(p, B) - 1] < X), p, pos)
+        step >>= 1
+    return pos
+
+
+@pytest.mark.parametrize("generator", ["uniform", "quantile"])
+def test_bucketize_special_grids(generator):
+    """Grids from columns with +-inf, NaN, +-0.0 and constant values: the
+    port's grid bit-equal to the JAX package's; bucketize_plain equal to
+    JAX's bucketize and to bucketize_pallas (interpret); and K1's lower-bound
+    search (emulated) equal to the count, since ``cand < x`` holds on a
+    prefix of every such row."""
+    rng = np.random.default_rng(11)
+    X = _special_columns(rng, 300)
+    kw = dict(input_dim=6, output_dim=1, n_num_features=6, n_bins=32,
+              generator_type=generator)
+    cand = np.asarray(jcand.numerical_candidates(JConfig(**kw),
+                                                 jnp.asarray(X)))
+    tc = tcand.numerical_candidates(TreeConfig(**kw), _t(X)).numpy()
+    np.testing.assert_array_equal(tc.view(np.int32), cand.view(np.int32))
+    probe = np.concatenate([X, np.tile(np.array(
+        [[np.inf], [-np.inf], [np.nan], [-0.0], [0.0], [1.5]], np.float32),
+        (1, 6)), cand[:, ::3].T], axis=0)
+    got = K.bucketize_plain(_t(probe), _t(cand)).numpy()
+    np.testing.assert_array_equal(
+        got, np.asarray(jcand.bucketize(jnp.asarray(probe),
+                                        jnp.asarray(cand))))
+    np.testing.assert_array_equal(
+        got, np.asarray(bucketize_pallas(jnp.asarray(probe),
+                                         jnp.asarray(cand), interpret=True)))
+    np.testing.assert_array_equal(_search(cand, probe), got)
+    assert (got[np.isnan(probe)] == 0).all()
+
+
 @pytest.mark.parametrize("n,f,o,n_nodes,buckets",
                          [(1000, 7, 3, 4, 33), (100, 1, 2, 8, 9)])
 def test_level_histogram_plain_matches_jax(n, f, o, n_nodes, buckets):

@@ -140,6 +140,70 @@ def test_level_histogram_deterministic(cuda_device, n, f, nb, n_nodes):
     assert err <= 1e-5 * want.abs().max().item() + 1e-6, err
 
 
+@pytest.mark.parametrize("n,f,nb,C", [(10, 3, 257, 8), (33, 4, 257, 4),
+                                      (777, 5, 257, 32), (1000, 4, 257, 1),
+                                      (500, 4, 1, 8), (777, 5, 1025, 16),
+                                      (1000, 300, 257, 8),
+                                      (300, 2, 100_000, 4)])
+def test_level_histogram_cluster_shapes(cuda_device, n, f, nb, C):
+    """K2 at shapes that stress its cluster plan: fewer samples than one
+    cluster's worth, N not a multiple of 32, one column, one bucket, bucket
+    ranges, F = 300; bucket ids outside [0, nb), rows of zero weight and
+    -0.0 entries in nd.  The same bits on three launches; within 1e-5 of
+    scale of the plain version; a bin whose terms are all zero or -0.0 is
+    +0.0, as the plain version's."""
+    rng = np.random.default_rng(n + f + C)
+    Xb = rng.integers(-1, nb + 1, size=(n, f)).astype(np.int32)
+    nd = rng.normal(size=(n, C)).astype(np.float32)
+    nd[rng.random((n, C)) < 0.6] = 0.0
+    nd[::4] = 0.0                                      # zero-weight rows
+    nd[1::9, 0] = -0.0
+    Xd, ndd = (torch.from_numpy(a).to(cuda_device) for a in (Xb, nd))
+    first = K.level_histogram_cuda(Xd, ndd, nb)
+    for _ in range(2):
+        assert torch.equal(K.level_histogram_cuda(Xd, ndd, nb), first)
+    want = K.level_histogram_plain(Xd, ndd, nb)
+    torch.cuda.synchronize()
+    err = (first - want).abs().max().item()
+    assert err <= 1e-5 * want.abs().max().item() + 1e-6, err
+    zero = want == 0
+    assert torch.equal(torch.signbit(first[zero]), torch.signbit(want[zero]))
+
+
+def _special_columns(rng, n):
+    X = rng.normal(size=(n, 6)).astype(np.float32)
+    X[::7, 0] = np.inf
+    X[::11, 0] = -np.inf
+    X[::5, 1] = np.nan
+    X[:, 2] = np.where(rng.random(n) < 0.5, -0.0, 0.0)
+    X[::3, 2] = rng.normal(size=len(X[::3, 2]))
+    X[:, 3] = 1.5
+    X[::9, 4] = np.inf
+    X[:, 5] = np.where(rng.random(n) < 0.5, -0.0, 0.0)
+    return X
+
+
+@pytest.mark.parametrize("generator", ["uniform", "quantile"])
+@pytest.mark.parametrize("n,b", [(4096, 256), (513, 16)])
+def test_bucketize_special_grids(cuda_device, generator, n, b):
+    """K1 on grids built from columns with +-inf, NaN, -0.0 / +0.0 and
+    constant values: bit-equal to the plain version on the card and on the
+    CPU, the special values themselves among the inputs."""
+    from gbrl_tpu_torch.config import TreeConfig
+    from gbrl_tpu_torch.ops import candidates as C
+    X = _special_columns(np.random.default_rng(n + b), n)
+    X[:6] = np.array([np.inf, -np.inf, np.nan, -0.0, 0.0, 1.5],
+                     np.float32)[:, None]
+    cfg = TreeConfig(input_dim=6, output_dim=1, n_num_features=6, n_bins=b,
+                     generator_type=generator)
+    Xd = torch.from_numpy(X).to(cuda_device)
+    cand = C.numerical_candidates(cfg, Xd)
+    got = K.bucketize_cuda(Xd, cand)
+    torch.cuda.synchronize()
+    assert torch.equal(got, K.bucketize_plain(Xd, cand))
+    assert torch.equal(got.cpu(), K.bucketize_plain(Xd.cpu(), cand.cpu()))
+
+
 @pytest.mark.parametrize("oblivious", [False, True])
 @pytest.mark.parametrize("score", ["cosine", "l2"])
 @pytest.mark.parametrize("n_nodes,min_data", [(1, 0), (8, 0), (8, 30)])
