@@ -12,7 +12,7 @@ greedy and oblivious.  Ensembles, observations and gradients are
 synthetic, made with numpy from ``--seed``.  The kernels are the CUDA C++
 ones in ``gbrl_tpu_torch/csrc``: K1 bucketize, K2 level histogram and K3
 level split score (``fit.cu``); K4 greedy and K5 oblivious leaf sums
-(``predict.cu``).
+(``predict.cu``); K6 whole tree (``tree.cu``).
 
 Phases (any failure raises; the script then exits nonzero):
   1 device   the card's name, power limit and CUDA version;
@@ -47,13 +47,20 @@ Phases (any failure raises; the script then exits nonzero):
              host arrays, and given the card gradients a backward pass left
              on the predicted leaves; fit trees per second; host
              synchronisations in one boosting step and in both kinds of
-             step; K1 and K2 at the bench and the PPO minibatch shape
+             step; K1, K2 and K3 at the bench and the PPO minibatch shape
              (N = 512, F = 4): held against their plain versions, then the
-             call time (one call between CUDA events) and the device time
-             per call (torch.profiler), which must be one device launch,
-             beside torch.searchsorted's / index_add_'s, measured both
-             ways, their bounds and plain versions; K3 likewise at the
-             bench shape.
+             call time (one call between CUDA events), the host time
+             (enqueue) and the device time per call (torch.profiler), which
+             must be one device launch, beside torch.searchsorted's /
+             index_add_'s, measured the same ways, their bounds and plain
+             versions;
+  9 tree parity  K6 against its plain version, the K6 path's trees against
+             the level path's;
+  10-11 RL   PPO and A2C on CartPole on both tree paths, one update phase
+             held against the CPU port with its launch counts;
+  12 RL times  update-phase latency on both paths, syncs, rollout rate,
+             profiles; K6's call, host and kernel times at the PPO minibatch
+             and the bench shape (one device launch per call).
 
 Without a CUDA device it exits nonzero before printing any result.  It
 prints, before the last line, the nvidia-smi name/power-limit line and one
@@ -789,6 +796,20 @@ def fit_time_inputs(K, rng, dev, n: int, f: int) -> dict:
     return {"bucketize": [(Xd, cd)], "level_histogram": levels}
 
 
+def level_score_inputs(K, dev, levels: list) -> list:
+    """K3's arguments for one tree's levels, as phase 6 keeps them at the
+    bench shape: K2's histogram of each level, nothing blocked, unit feature
+    weights, greedy, cosine, no min-data mask."""
+    import torch
+    out = []
+    for d, (Xb, nd, nb) in enumerate(levels):
+        f = Xb.shape[1]
+        out.append((K.level_histogram_cuda(Xb, nd, nb), torch.zeros(
+            (1 << d, f, nb - 1), dtype=torch.bool, device=dev),
+            torch.ones(f, device=dev), nb - 1, O, "cosine", 0, False, d == 0))
+    return out
+
+
 def library_call(name: str, a):
     """The one PyTorch call that computes the kernel's function on the same
     inputs (inputs rearranged outside the timed call), or None."""
@@ -847,6 +868,20 @@ def fit_kernel_times(name: str, calls: list, fast, plain=None,
     tot["bound_by"] = ("bytes" if tot.pop("t_bytes") >= tot.pop("t_ops")
                        else "operations")
     return tot
+
+
+DEVICE_KERNEL = {"bucketize": "bucketize_kernel",
+                 "level_histogram": "level_hist_kernel",
+                 "level_score": "level_score_kernel",
+                 "tree_build": "tree_build_kernel"}
+
+
+def assert_one_kernel(name: str, shape: str, dk: dict) -> None:
+    """One launch per call: the kernel's own device kernel, once, and
+    nothing else (an empty profile is reported as kernel_ms None)."""
+    assert not dk or (len(dk) == 1 and DEVICE_KERNEL[name] in next(iter(dk))
+                      and next(iter(dk.values())) == 1), (
+        f"{name} [{shape}]: device kernels per call {dk}")
 
 
 def sync_count(fn) -> int:
@@ -948,12 +983,16 @@ def phase_fit_times(rng, dev, args: dict, errs: dict, launches: dict):
     print(f"  host synchronisations: ops.boosting.boost_step (tensors on the "
           f"card) {n_sync}; ActorCritic.step (host arrays) {n_sync_step}; "
           f"ActorCritic.step (card gradients) {n_sync_card}")
-    # kernel times at the shapes of the main path: K1 and K2 at the bench
-    # and the PPO minibatch shape (held against their plain versions first),
-    # K3 at the bench shape
+    # kernel times at the shapes of the main path: K1, K2 and K3 at the
+    # bench and the PPO minibatch shape (held against their plain versions
+    # first); K3's bench-shape arguments come from phase 6, its PPO-shape
+    # ones are built the same way from the PPO levels' histograms
     kernels = []
     shapes = {"bench": fit_time_inputs(K, rng, dev, N, F),
               "ppo": fit_time_inputs(K, rng, dev, PPO_N, PPO_F)}
+    shapes["bench"]["level_score"] = args["level_score"]
+    shapes["ppo"]["level_score"] = level_score_inputs(
+        K, dev, shapes["ppo"]["level_histogram"])
     for shape, inp in shapes.items():
         (X, cand), = inp["bucketize"]
         assert torch.equal(K.bucketize_cuda(X, cand),
@@ -965,6 +1004,10 @@ def phase_fit_times(rng, dev, args: dict, errs: dict, launches: dict):
             err = max_err(h, want)
             assert err <= close_limit(want), f"K2 {shape}: err {err}"
             errs["level_histogram"] = max(errs["level_histogram"], err)
+        for a in inp["level_score"]:
+            got = K.level_score_cuda(*a)
+            for x, y in zip(got, K.level_score_plain(*a)):
+                assert torch.equal(x, y), f"K3 {shape}"
     plans = [("bucketize", K.bucketize_cuda, K.bucketize_plain),
              ("level_histogram", K.level_histogram_cuda,
               K.level_histogram_plain),
@@ -972,10 +1015,7 @@ def phase_fit_times(rng, dev, args: dict, errs: dict, launches: dict):
     for name, fast, plain in plans:
         times = {}
         for shape in ("bench", "ppo"):
-            if name == "level_score" and shape == "ppo":
-                continue
-            calls = (args["level_score"] if name == "level_score"
-                     else shapes[shape][name])
+            calls = shapes[shape][name]
             t = fit_kernel_times(name, calls, fast, plain,
                                  5 if name == "level_score" else KERNEL_REPS)
             times[shape] = t
@@ -988,14 +1028,7 @@ def phase_fit_times(rng, dev, args: dict, errs: dict, launches: dict):
                   f"(device kernels per call {t['device_kernels']}) | plain "
                   f"{t['plain_ms']:.5f} ms | library {lib} | bound "
                   f"{t['bound_ms']:.6f} ms ({t['bound_by']})")
-            if name in ("bucketize", "level_histogram"):
-                # one launch per call: K1's or K2's kernel and nothing else
-                want = ("bucketize_kernel" if name == "bucketize"
-                        else "level_hist_kernel")
-                dk = t["device_kernels"]
-                assert not dk or (len(dk) == 1 and want in next(iter(dk))
-                                  and next(iter(dk.values())) == 1), (
-                    f"{name} [{shape}]: device kernels per call {dk}")
+            assert_one_kernel(name, shape, t["device_kernels"])
         t = times["bench"]
         entry = dict(
             name=name, route="cuda", source="gbrl_tpu_torch/csrc/fit.cu",
@@ -1424,27 +1457,32 @@ def phase_rl_times(rng, dev, ppo: dict, tree_args: dict, tree_err: float):
     for k6 in (True, False):
         print(f"  {'K6' if k6 else 'level'} path:")
         profile_requests(lambda: phase(k6), n=3, what="update phase")
-    # K6 at the minibatch and the bench shape
-    entry = None
+    # K6 at the minibatch and the bench shape: call (CUDA events), host
+    # (enqueue) and kernel (profiler) time, one device kernel per call
+    shapes = {}
     for (n, f), a in tree_args.items():
         tile = K._tree_tiling(n, f)[0]
-        ms = cuda_ms(lambda: K.tree_build_cuda(*a), KERNEL_REPS)
-        pms = cuda_ms(lambda: K.tree_build_plain(*a, tile), 3, warmup=1)
-        nbytes, ops = fit_bounds("tree_build", a)
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
-        bms = max(t_bytes, t_ops) * 1e3
-        by = "bytes" if t_bytes >= t_ops else "operations"
-        print(f"  tree_build N={n} F={f}: {ms:.5f} ms | plain {pms:.5f} ms | "
-              f"library none | bound {bms:.7f} ms ({by})")
-        if (n, f) == (PPO_N, PPO_F):
-            entry = dict(name="tree_build", route="cuda",
-                         source="gbrl_tpu_torch/csrc/tree.cu",
-                         replaces=REPLACES["tree_build"],
-                         launches=ppo["k6_launches"], max_abs_err=tree_err,
-                         ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
-                         library_ms=None)
-    print(f"  (the kernels line reports K6 at the PPO minibatch shape "
-          f"N={PPO_N} F={PPO_F}; launches from phase 10's K6-path run)")
+        t = fit_kernel_times("tree_build", [a], K.tree_build_cuda,
+                             lambda *x: K.tree_build_plain(*x, tile), 3)
+        assert_one_kernel("tree_build", f"N={n} F={f}", t["device_kernels"])
+        print(f"  tree_build N={n} F={f}: call {t['call_ms']:.5f} ms, host "
+              f"{t['host_ms']:.5f} ms, kernel {t['kernel_ms']} ms (device "
+              f"kernels per call {t['device_kernels']}) | plain "
+              f"{t['plain_ms']:.5f} ms | library none | bound "
+              f"{t['bound_ms']:.7f} ms ({t['bound_by']})")
+        shapes[(n, f)] = {k: t[k] for k in ("call_ms", "host_ms", "kernel_ms",
+                                            "plain_ms", "bound_ms",
+                                            "bound_by")}
+    t = shapes[(PPO_N, PPO_F)]
+    entry = dict(name="tree_build", route="cuda",
+                 source="gbrl_tpu_torch/csrc/tree.cu",
+                 replaces=REPLACES["tree_build"],
+                 launches=ppo["k6_launches"], max_abs_err=tree_err,
+                 ms=t["call_ms"], plain_ms=t["plain_ms"],
+                 bound_ms=t["bound_ms"],
+                 bound_by=t["bound_by"],
+                 library_ms=None, call_ms=t["call_ms"], host_ms=t["host_ms"],
+                 kernel_ms=t["kernel_ms"], bench_shape=shapes[(N, F)])
     return entry
 
 

@@ -66,21 +66,37 @@
 //   latency of its shared-memory read-modify-writes and two cluster barriers.
 //
 // K3 (one level's split choice).  Reads the histogram [F, C, NB] that K2
-//   writes, with no reshuffle.  Two launches:
-//     score:  one block per (feature, node): sequential f32 prefix sums
-//             over the buckets for the O + 1 columns of the node (and for
-//             feature 0, whose totals are the node totals), then one thread
-//             per candidate: L2 / cosine score, min-data mask, feature
-//             weight, no-reuse mask, parent subtraction and NaN -> -inf
-//             (greedy); the raw masked score (oblivious);
-//     argmax: one block per node (greedy) or one block (oblivious, which
-//             first sums the node rows in node order, then NaN -> -inf):
-//             the row's max, then the first index within the 2e-6 relative
-//             band (the parent score in the band's base).  Max and min are
-//             exact in any order, so the argmax is deterministic.
-//   Both steps are the device functions of score.cuh, which K6 (tree.cu)
-//   runs too; their arithmetic repeats the plain PyTorch version's bit for
-//   bit.
+//   writes, with no reshuffle, and writes one packed [O + 4, n_nodes] result.
+//   The function reads F C NB floats once and does a few tens of operations
+//   per candidate: well under a microsecond of bytes or operations, so what
+//   bounds it is latency: the 257-step prefix chain, the barriers, the
+//   launch.  One launch of thread-block clusters:
+//     - a cluster of S <= 16 blocks (non-portable past 8, allowed once per
+//       device by gbrl_fit_prepare) owns one node (greedy) or the whole
+//       level (oblivious); block r owns the contiguous features
+//       [r fpb, (r + 1) fpb), so the candidates' order is rank order;
+//     - a block stages its (node, feature) histogram rows g features x nc
+//       nodes at a time into shared memory with every load in flight (and,
+//       with the first group, feature 0's rows of those nodes, whose full
+//       prefix gives the node totals; fed by a first pass instead where they
+//       do not fit), then one thread per row runs the sequential prefix sum
+//       from shared memory (score.cuh scan_rows);
+//     - one thread per candidate scores it (score.cuh candidate_score and
+//       greedy_value: the arithmetic of the plain version); an oblivious
+//       candidate's value is the sum of its nodes' scores in node order,
+//       then NaN -> -inf; the values stay in shared memory (no global
+//       scratch), or, where a block's features do not fit, a second pass
+//       recomputes them group by group (the same arithmetic, the same bits);
+//     - the cluster takes the max of its blocks' maxima through distributed
+//       shared memory, every block finds its first index within the 2e-6
+//       band, and rank 0 takes the lowest rank's hit and writes the result.
+//       Max and min are exact in any order, so the result is deterministic
+//       and does not depend on the plan.
+//   Each block stages the node totals of its own nodes (K more rows per
+//   node, in the same flight of loads and the same parallel scan); taking
+//   them from rank 0 instead would put a cluster barrier between every
+//   block's scan and its scoring.  The plan (S, fpb, g, nc, keep, fuse)
+//   comes from the shapes alone (ops/kernels.py _score_plan).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -Xcompiler -fPIC
 // (no fast-math: IEEE division and sqrtf).
@@ -103,6 +119,7 @@ constexpr int K2_THREADS = 32 * K2_WARPS;
 constexpr int K2_SUB = 512;        // samples per staged sub-tile (HIST_SUB)
 constexpr int K2_MAX_CLUSTER = 8;  // HIST_MAX_CLUSTER: the portable size
 constexpr int K3_THREADS = 256;
+constexpr int K3_MAX_CLUSTER = 16;  // ops/kernels.py SCORE_MAX_CLUSTER
 constexpr unsigned FULL = 0xffffffffu;
 
 // ------------------------------------------------------------------- K1
@@ -303,45 +320,248 @@ level_hist_kernel(const int32_t* __restrict__ Xb,
 }
 
 // ------------------------------------------------------------------- K3
-// stats[node] = (node gradient sums [O], node count, parent score)
-__global__ void __launch_bounds__(K3_THREADS)
-level_score_kernel(const float* __restrict__ hist,
-                   const uint8_t* __restrict__ blocked,
-                   const float* __restrict__ feat_w, float* __restrict__ adj,
-                   float* __restrict__ stats, int F, int O, int NB, int B,
-                   int cosine, float min_data, int oblivious, int is_root) {
-  extern __shared__ float sm[];
-  const int f = blockIdx.x, node = blockIdx.y, n_nodes = gridDim.y;
-  const uint8_t* blk = blocked + ((size_t)node * F + f) * B;
-  gbrl::score_feature_node(hist, feat_w, adj, stats, f, node, n_nodes, F, O,
-                           NB, B, cosine, min_data, oblivious, is_root, sm,
-                           [&](int b) { return blk[b] != 0; });
+// Shared memory of one K3 block, in floats (ops/kernels.py _score_words):
+// the staged rows [rows][NBp], the node totals and parents [NS][O + 2], the
+// candidate values (keep: the block's [fpb * B]; else only an oblivious
+// level staged in node chunks keeps its group's sums [g * B]), block scratch
+// [32] and the cluster exchange [4].
+__host__ __device__ inline size_t k3_rows(int g, int nc, int K, int fuse) {
+  return (size_t)nc * g * K + (fuse ? (size_t)nc * K : 0);
+}
+__host__ __device__ inline size_t k3_vals(int B, int NS, int fpb, int g,
+                                          int nc, int keep) {
+  return keep ? (size_t)fpb * B : nc < NS ? (size_t)g * B : 0;
+}
+__host__ __device__ inline size_t k3_smem_words(int NB, int K, int B, int NS,
+                                                int fpb, int g, int nc,
+                                                int keep, int fuse) {
+  return k3_rows(g, nc, K, fuse) * gbrl::odd_stride(NB) + (size_t)NS * (K + 1)
+         + k3_vals(B, NS, fpb, g, nc, keep) + 36;
 }
 
-__global__ void __launch_bounds__(K3_THREADS)
-level_argmax_kernel(const float* __restrict__ adj,
-                    const float* __restrict__ stats,
-                    int32_t* __restrict__ best_idx,
-                    float* __restrict__ best_val, int n_nodes, int M, int O,
-                    int oblivious) {
-  __shared__ float shf[32];
-  __shared__ int shi[32];
-  const int node = blockIdx.x;
-  int qi;
-  float v;
-  gbrl::argmax_node(adj, stats, node, n_nodes, M, O, oblivious, shf, shi, &qi,
-                    &v);
-  if (threadIdx.x == 0) {
-    if (oblivious) {
-      for (int n = 0; n < n_nodes; ++n) {
-        best_idx[n] = qi;
-        best_val[n] = v;
-      }
-    } else {
-      best_idx[node] = qi;
-      best_val[node] = v;
+// The shapes, flags and plan of one K3 launch (ops/kernels.py
+// _score_params), in this order.
+enum { Q_F, Q_NODES, Q_O, Q_B, Q_COSINE, Q_OBLIVIOUS, Q_ROOT, Q_S, Q_FPB, Q_G,
+       Q_NC, Q_KEEP, Q_FUSE, Q_SMEM, Q_COUNT };
+
+struct K3Args {
+  const float* hist;       // [F, n_nodes * K, NB]
+  const uint8_t* blocked;  // [n_nodes, F, B]
+  const float* feat_w;     // [F]
+  float* out;              // [O + 4, n_nodes]: idx bits, best, count, parent,
+                           // sums [O]
+  int F, n_nodes, O, NB, B, cosine, oblivious, is_root;
+  float min_data;
+  int fpb, g, nc, keep, fuse;   // the plan (ops/kernels.py _score_plan)
+};
+
+// Stages rows [r0, r0 + n) of the list row(r) -> hist row into shared memory
+// at stride NBp, every load independent.
+template <class Row>
+__device__ __forceinline__ void k3_stage(float* stage, int n_rows, int NB,
+                                         int NBp, Row row) {
+#pragma unroll 8
+  for (int i = threadIdx.x; i < n_rows * NB; i += K3_THREADS) {
+    const int r = i / NB, b = i - r * NB;
+    stage[(size_t)r * NBp + b] = __ldg(row(r) + b);
+  }
+}
+
+__global__ void __launch_bounds__(K3_THREADS, 1)
+level_score_kernel(const K3Args a) {
+  extern __shared__ float sm[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int K = a.O + 1, NB = a.NB, NBp = gbrl::odd_stride(NB), B = a.B;
+  const size_t C = (size_t)a.n_nodes * K;
+  const int NS = a.oblivious ? a.n_nodes : 1;
+  const int node0 = a.oblivious ? 0 : (int)(blockIdx.x / S);
+  const int fa = rank * a.fpb, fb = min(a.F, fa + a.fpb);
+  const int rows_max = (int)k3_rows(a.g, a.nc, K, a.fuse);
+  float* stage = sm;                                  // [rows_max][NBp]
+  float* tot = stage + (size_t)rows_max * NBp;        // [NS][K + 1]
+  float* sc = tot + (size_t)NS * (K + 1);             // candidate values
+  float* shf = sc + k3_vals(B, NS, a.fpb, a.g, a.nc, a.keep);
+  int* shi = reinterpret_cast<int*>(shf);             // (shares shf)
+  float* xch = shf + 32;                              // max, index, value
+  const int tid = threadIdx.x;
+  auto hrow = [&](int f, int node, int k) {
+    return a.hist + ((size_t)f * C + (size_t)node * K + k) * NB;
+  };
+  // the totals' parents, once the totals of nodes [c0, c0 + nn) are in
+  auto parents = [&](int c0, int nn) {
+    for (int j = tid; j < nn; j += K3_THREADS) {
+      float* t = tot + (size_t)(c0 + j) * (K + 1);
+      t[K] = a.is_root ? 0.0f : gbrl::node_parent(t, a.O, a.cosine);
+    }
+  };
+  if (!a.fuse) {
+    // the node totals first: feature 0's rows of as many nodes as fit
+    const int per = max(1, rows_max / K);
+    for (int c0 = 0; c0 < NS; c0 += per) {
+      const int nn = min(per, NS - c0);
+      __syncthreads();
+      k3_stage(stage, nn * K, NB, NBp, [&](int r) {
+        return hrow(0, node0 + c0 + r / K, r % K);
+      });
+      __syncthreads();
+      gbrl::scan_rows(stage, nn * K, NB, NBp);
+      __syncthreads();
+      for (int r = tid; r < nn * K; r += K3_THREADS)
+        tot[(size_t)(c0 + r / K) * (K + 1) + r % K] =
+            stage[(size_t)r * NBp + NB - 1];
+      __syncthreads();
+      parents(c0, nn);
     }
   }
+  const int n_groups = (fb - fa + a.g - 1) / a.g;
+  float lmax = -INFINITY, m = -INFINITY, lim = 0.0f;
+  int qi = 0x7fffffff;
+  float vi = -INFINITY;
+  const bool store = a.keep || a.nc < NS;   // an oblivious chunked sum
+  for (int pass = 0; pass < (a.keep ? 1 : 2); ++pass) {
+    for (int gi = 0; gi < n_groups; ++gi) {
+      const int ga = fa + gi * a.g, ng = min(a.g, fb - ga);
+      const bool want_tot = a.fuse && gi == 0 && pass == 0;
+      float* vals = a.keep ? sc + (size_t)(ga - fa) * B : sc;
+      for (int c0 = 0; c0 < NS; c0 += a.nc) {
+        const int nn = min(a.nc, NS - c0);
+        const int own = nn * ng * K;
+        const int extra = want_tot && ga != 0 ? nn * K : 0;
+        __syncthreads();   // the previous chunk's rows are consumed
+        k3_stage(stage, own + extra, NB, NBp, [&](int r) {
+          if (r >= own) {
+            r -= own;
+            return hrow(0, node0 + c0 + r / K, r % K);
+          }
+          const int jn = r / (ng * K), rem = r - jn * ng * K;
+          return hrow(ga + rem / K, node0 + c0 + jn, rem % K);
+        });
+        __syncthreads();
+        gbrl::scan_rows(stage, own + extra, NB, NBp);
+        __syncthreads();
+        if (want_tot) {
+          for (int r = tid; r < nn * K; r += K3_THREADS) {
+            const int jn = r / K, k = r - jn * K;
+            const int at = extra ? own + r : jn * ng * K + k;  // feature 0
+            tot[(size_t)(c0 + jn) * (K + 1) + k] =
+                stage[(size_t)at * NBp + NB - 1];
+          }
+          __syncthreads();
+          parents(c0, nn);
+          __syncthreads();
+        }
+        const bool last = c0 + nn == NS;
+        for (int i = tid; i < ng * B; i += K3_THREADS) {
+          const int j = i / B, b = i - j * B, f = ga + j;
+          const float fw = __ldg(a.feat_w + f);
+          float v;
+          if (!a.oblivious) {
+            const float* t = tot;
+            const float s = gbrl::candidate_score(
+                stage + (size_t)j * K * NBp, NBp, t, a.O, b, a.cosine,
+                a.min_data, fw);
+            v = gbrl::greedy_value(
+                s, a.blocked[((size_t)node0 * a.F + f) * B + b] != 0, t[K]);
+          } else {
+            float acc = c0 == 0 ? 0.0f : vals[i];
+            for (int jn = 0; jn < nn; ++jn) {
+              const int node = c0 + jn;
+              float s = gbrl::candidate_score(
+                  stage + ((size_t)jn * ng + j) * K * NBp, NBp,
+                  tot + (size_t)node * (K + 1), a.O, b, a.cosine, a.min_data,
+                  fw);
+              if (a.blocked[((size_t)node * a.F + f) * B + b]) s = -INFINITY;
+              acc = __fadd_rn(acc, s);
+            }
+            v = last && isnan(acc) ? -INFINITY : acc;
+          }
+          if (store) vals[i] = v;
+          if (last) {
+            if (pass == 0) {
+              lmax = fmaxf(lmax, v);
+            } else if (v >= lim && f * B + b < qi) {
+              qi = f * B + b;   // this thread's first hit and its value
+              vi = v;
+            }
+          }
+        }
+      }
+      if (pass == 1) {
+        // the first hit of this group, if any, is the block's; its thread
+        // publishes the value
+        const int q = gbrl::block_min(qi, shi);
+        if (q != 0x7fffffff) {
+          if (qi == q) xch[3] = vi;
+          __syncthreads();
+          qi = q;
+          vi = xch[3];
+          break;
+        }
+      }
+    }
+    if (pass == 0) {
+      // the level's max over the cluster (exact in any order)
+      lmax = gbrl::block_max(lmax, shf);
+      if (tid == 0) xch[0] = lmax;
+      cluster.sync();
+      float x[K3_MAX_CLUSTER];                 // every remote load in flight
+#pragma unroll
+      for (int r = 0; r < K3_MAX_CLUSTER; ++r)
+        x[r] = r < S ? cluster.map_shared_rank(xch, r)[0] : -INFINITY;
+      m = -INFINITY;
+#pragma unroll
+      for (int r = 0; r < K3_MAX_CLUSTER; ++r) m = fmaxf(m, x[r]);
+      lim = gbrl::band_limit(m, a.oblivious ? 0.0f : fabsf(tot[K]));
+      if (a.keep) {
+        __syncthreads();
+        for (int i = tid; i < (fb - fa) * B; i += K3_THREADS)
+          if (sc[i] >= lim) {
+            qi = fa * B + i;
+            break;
+          }
+        qi = gbrl::block_min(qi, shi);
+        if (qi != 0x7fffffff) vi = sc[qi - fa * B];
+      }
+    }
+  }
+  // the first hit over the cluster: the lowest rank that has one
+  if (tid == 0) {
+    reinterpret_cast<int*>(xch)[1] = qi;
+    xch[2] = vi;
+  }
+  cluster.sync();
+  if (rank == 0) {
+    int rq[K3_MAX_CLUSTER];
+    float rv[K3_MAX_CLUSTER];
+#pragma unroll
+    for (int r = 0; r < K3_MAX_CLUSTER; ++r) {
+      const float* x = cluster.map_shared_rank(xch, r < S ? r : 0);
+      rq[r] = r < S ? reinterpret_cast<const int*>(x)[1] : 0x7fffffff;
+      rv[r] = x[2];
+    }
+    int q = 0x7fffffff;
+    float v = -INFINITY;
+#pragma unroll
+    for (int r = K3_MAX_CLUSTER - 1; r >= 0; --r) {
+      if (rq[r] != 0x7fffffff) {      // the lowest rank with a hit wins
+        q = rq[r];
+        v = rv[r];
+      }
+    }
+    const size_t n = a.n_nodes;
+    for (int j = tid; j < NS; j += K3_THREADS) {
+      const int node = node0 + j;
+      const float* t = tot + (size_t)j * (K + 1);
+      reinterpret_cast<int*>(a.out)[node] = q;
+      a.out[n + node] = v;
+      a.out[2 * n + node] = t[a.O];
+      a.out[3 * n + node] = t[K];
+      for (int o = 0; o < a.O; ++o) a.out[(4 + o) * n + node] = t[o];
+    }
+  }
+  cluster.sync();   // every rank's exchange stays alive until rank 0 has read
 }
 
 int last_error() { return (int)cudaGetLastError(); }
@@ -355,6 +575,24 @@ cudaLaunchConfig_t k2_config(int n_slices, int n_col, int n_br, int S, int fs,
                      (unsigned)n_br);
   cfg.blockDim = dim3(K2_THREADS);
   cfg.dynamicSmemBytes = k2_smem_bytes(fs, cs, br);
+  cfg.stream = (cudaStream_t)stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = (unsigned)S;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// K3's launch: one cluster of S blocks per node (greedy) or one for the
+// level (oblivious).
+cudaLaunchConfig_t k3_config(int units, int S, size_t bytes,
+                             cudaLaunchAttribute* attr, void* stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(units * S));
+  cfg.blockDim = dim3(K3_THREADS);
+  cfg.dynamicSmemBytes = bytes;
   cfg.stream = (cudaStream_t)stream;
   attr->id = cudaLaunchAttributeClusterDimension;
   attr->val.clusterDim.x = (unsigned)S;
@@ -381,7 +619,9 @@ int gbrl_fit_prepare(int bytes) {
         k, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err) return err;
   }
-  return 0;
+  return (int)cudaFuncSetAttribute(
+      (const void*)level_score_kernel,
+      cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
 }
 
 // How many clusters of S K2 blocks with this slice the device can hold at
@@ -427,27 +667,39 @@ int gbrl_k2_level_histogram(const int32_t* Xb, const float* nd, float* out,
   return err ? err : last_error();
 }
 
-// hist [F, n_nodes * (O + 1), NB] f32; blocked [n_nodes, F, B] u8;
-// feat_w [F] f32; adj: scratch [n_nodes, F * B] f32; stats [n_nodes, O + 2]
-// f32 (sums, count, parent); best_idx [n_nodes] i32 (f * B + b);
-// best_val [n_nodes] f32.  min_data <= 0 disables the min-data mask.
+// How many clusters of S K3 blocks of `bytes` shared memory the device can
+// hold at once (>= 1 when the launch can run), or -(CUDA error).
+int gbrl_k3_max_clusters(int S, int bytes) {
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = k3_config(1, S, (size_t)bytes, &attr,
+                                           nullptr);
+  int n = 0;
+  const int err = (int)cudaOccupancyMaxActiveClusters(
+      &n, (const void*)level_score_kernel, &cfg);
+  return err ? -err : n;
+}
+
+// hist [F, n_nodes * (O + 1), B + 1] f32; blocked [n_nodes, F, B] u8;
+// feat_w [F] f32; out [O + 4, n_nodes] f32: the chosen index f * B + b (its
+// int32 bits), the value there, the node count, the parent score (0 at the
+// root), the node sums [O].  q: the int array of ops/kernels.py
+// _score_params (Q_*): shapes, flags and the plan (S blocks per cluster, fpb
+// features per block, staged g features x nc nodes at a time; keep: every
+// candidate value of the block held in shared memory, else a second pass
+// recomputes them; fuse: the node totals staged with the first group, else
+// a first pass).  min_data <= 0 disables the min-data mask.
 int gbrl_k3_level_score(const float* hist, const uint8_t* blocked,
-                        const float* feat_w, float* adj, float* stats,
-                        int32_t* best_idx, float* best_val, int F,
-                        int n_nodes, int O, int NB, int B, int cosine,
-                        float min_data, int oblivious, int is_root,
-                        void* stream) {
-  const size_t bytes = sizeof(float) * gbrl::score_smem_floats(O, NB);
-  level_score_kernel<<<dim3((unsigned)F, (unsigned)n_nodes), K3_THREADS, bytes,
-                       (cudaStream_t)stream>>>(hist, blocked, feat_w, adj,
-                                               stats, F, O, NB, B, cosine,
-                                               min_data, oblivious, is_root);
-  int err = last_error();
-  if (err) return err;
-  level_argmax_kernel<<<oblivious ? 1 : n_nodes, K3_THREADS, 0,
-                        (cudaStream_t)stream>>>(adj, stats, best_idx, best_val,
-                                                n_nodes, F * B, O, oblivious);
-  return last_error();
+                        const float* feat_w, float* out, const int* q,
+                        float min_data, void* stream) {
+  const K3Args a{hist, blocked, feat_w, out, q[Q_F], q[Q_NODES], q[Q_O],
+                 q[Q_B] + 1, q[Q_B], q[Q_COSINE], q[Q_OBLIVIOUS], q[Q_ROOT],
+                 min_data, q[Q_FPB], q[Q_G], q[Q_NC], q[Q_KEEP], q[Q_FUSE]};
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      k3_config(a.oblivious ? 1 : a.n_nodes, q[Q_S], (size_t)q[Q_SMEM], &attr,
+                stream);
+  const int err = (int)cudaLaunchKernelEx(&cfg, level_score_kernel, a);
+  return err ? err : last_error();
 }
 
 }  // extern "C"

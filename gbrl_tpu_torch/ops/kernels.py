@@ -10,22 +10,22 @@ Counterpart of ``gbrl_tpu/ops/pallas_kernels.py``:
 - ``oblivious_leaf_sum_cuda`` replaces ``oblivious_leaf_sum_pallas`` (K5).
 
 K1-K3 are the fit path (``csrc/fit.cu``): bucket ids, one level's gradient
-histogram, one level's split choice.  K6 (``csrc/tree.cu``) fits a whole
-numeric tree of depth <= 4 in one cooperative launch.  K4 and K5 compute
-``sum_{t < n_trees} w[t, leaf(n, t), :] -> [N, O]`` with
-``w = leaf_values * coeff`` already folded (``csrc/predict.cu``).  The CUDA
-sources are compiled at first use with ``nvcc``, one process per source
-started together, and linked into one shared library with a C interface,
-keyed by a hash of the sources and flags, and loaded with ``ctypes``.  The
-library goes under ``build/gbrl_tpu_torch_kernels/`` at the root of a source
-checkout, under ``$GBRL_TPU_TORCH_BUILD_DIR`` if that is set, and otherwise
-(an installed package) under ``$XDG_CACHE_HOME`` or ``~/.cache``, in
+histogram, one level's split choice. K6 (``csrc/tree.cu``) fits a whole
+numeric tree of depth <= 4 in one launch of a thread-block cluster. K4 and
+K5 compute ``sum_{t < n_trees} w[t, leaf(n, t), :] -> [N, O]`` with ``w =
+leaf_values * coeff`` already folded (``csrc/predict.cu``). The CUDA sources
+are compiled at first use with ``nvcc``, one process per source started
+together, and linked into one shared library with a C interface, keyed by a
+hash of the sources and flags, and loaded with ``ctypes``. The library goes
+under ``build/gbrl_tpu_torch_kernels/`` at the root of a source checkout,
+under ``$GBRL_TPU_TORCH_BUILD_DIR`` if that is set, and otherwise (an
+installed package) under ``$XDG_CACHE_HOME`` or ``~/.cache``, in
 ``gbrl_tpu_torch_kernels/``.
 
 A wrapper given CPU tensors runs the plain version.  Given CUDA tensors it
 launches the kernel or raises: it never falls back.  Each wrapper counts its
-calls that launch on the card in ``launch_counts`` (one per call, although
-K3 launches two kernels; the CPU branch does not count).
+calls that launch on the card in ``launch_counts`` (one per call, each one
+device kernel; the CPU branch does not count).
 """
 from __future__ import annotations
 
@@ -223,22 +223,22 @@ def _library() -> ctypes.CDLL:
     lib.gbrl_max_smem_optin.restype = i32
     lib.gbrl_cuda_error_string.argtypes = [i32]
     lib.gbrl_cuda_error_string.restype = ctypes.c_char_p
-    size = ctypes.c_size_t
     lib.gbrl_fit_prepare.argtypes = [i32]
     lib.gbrl_k1_bucketize.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
     lib.gbrl_k2_level_histogram.argtypes = [ptr] * 3 + [i32] * 9 + [ptr]
     lib.gbrl_k2_max_clusters.argtypes = [i32] * 4
-    lib.gbrl_k3_level_score.argtypes = ([ptr] * 7 + [i32] * 6
-                                        + [ctypes.c_float, i32, i32, ptr])
+    lib.gbrl_k3_level_score.argtypes = [ptr] * 5 + [ctypes.c_float, ptr]
+    lib.gbrl_k3_max_clusters.argtypes = [i32] * 2
     for name in ("gbrl_fit_prepare", "gbrl_k1_bucketize",
                  "gbrl_k2_level_histogram", "gbrl_k2_max_clusters",
-                 "gbrl_k3_level_score"):
+                 "gbrl_k3_level_score", "gbrl_k3_max_clusters"):
         getattr(lib, name).restype = i32
-    lib.gbrl_k6_tree_build.argtypes = ([ptr] * 14 + [i32] * 8
-                                       + [ctypes.c_float, i32, ptr])
-    lib.gbrl_k6_tree_build.restype = i32
-    lib.gbrl_k6_smem_bytes.argtypes = [i32] * 3
-    lib.gbrl_k6_smem_bytes.restype = size
+    lib.gbrl_k6_tree_build.argtypes = [ptr] * 11 + [ctypes.c_float, ptr]
+    lib.gbrl_k6_prepare.argtypes = [i32]
+    lib.gbrl_k6_max_clusters.argtypes = [i32] * 2
+    for name in ("gbrl_k6_tree_build", "gbrl_k6_prepare",
+                 "gbrl_k6_max_clusters"):
+        getattr(lib, name).restype = i32
     return lib
 
 
@@ -342,21 +342,24 @@ def oblivious_leaf_sum_cuda(X: torch.Tensor, feat: torch.Tensor,
 # K1-K3 (csrc/fit.cu).  Shared memory a K1 block may use; K3's need is set
 # by O and the bucket count.
 FIT_SMEM_BUDGET = 96 * 1024
-# K6's sample tiles aim for about two blocks per SM of an H100 (132 SMs) and
-# never give a block fewer than HIST_MIN_TILE samples
-HIST_TARGET_BLOCKS = 264
 HIST_MIN_TILE = 64
 # K2's launch plan (fit.cu K2_WARPS, K2_SUB): warps per block, samples per
 # staged sub-tile; HIST_FEATS features per slice; at most HIST_MAX_CLUSTER
 # blocks (the portable cluster size) share a slice, each with at least
-# HIST_MIN_TILE samples; a slice holds at most HIST_COL_CAP columns, so deep
-# levels spread over more blocks; HIST_SMEM_BUDGET bytes per block
+# HIST_MIN_TILE samples (above); a slice holds at most HIST_COL_CAP columns,
+# so deep levels spread over more blocks; HIST_SMEM_BUDGET bytes per block
 HIST_WARPS = 16
 HIST_SUB = 512
 HIST_FEATS = 4
 HIST_MAX_CLUSTER = 8
 HIST_COL_CAP = 4
 HIST_SMEM_BUDGET = 160 * 1024
+# K3's launch plan (fit.cu K3): at most SCORE_MAX_CLUSTER blocks (past the
+# portable 8: a non-portable cluster size) share a node's or a level's
+# features;
+# SCORE_SMEM_BUDGET bytes per block
+SCORE_MAX_CLUSTER = 16
+SCORE_SMEM_BUDGET = 160 * 1024
 # rows per chunk of the plain bucketize (bounds its [rows, F, B] compare)
 PLAIN_BUCKETIZE_ELEMS = 1 << 22
 
@@ -689,12 +692,93 @@ def level_histogram_cuda(Xb: torch.Tensor, nd: torch.Tensor,
     return out
 
 
+class ScorePlan(NamedTuple):
+    """K3's launch plan: clusters of ``S`` blocks, one per node (greedy) or
+    one for the level (oblivious); block r owns features [r * fpb, (r + 1)
+    * fpb) and stages ``g`` features x ``nc`` nodes of histogram rows at a
+    time; ``keep``: the block's candidate values stay in shared memory (else
+    a second pass recomputes them); ``fuse``: the node totals are staged with
+    the first group (else a first pass); ``smem`` bytes per block (fit.cu
+    k3_smem_words)."""
+    S: int
+    fpb: int
+    g: int
+    nc: int
+    keep: int
+    fuse: int
+    smem: int
+
+
+def _score_words(NB: int, K: int, B: int, NS: int, fpb: int, g: int, nc: int,
+                 keep: int, fuse: int) -> int:
+    """fit.cu k3_smem_words: staged rows at an odd stride, node totals and
+    parents, candidate values (all of the block's when ``keep``; else only
+    an oblivious level's group sums when its nodes come in chunks), block
+    scratch and the cluster exchange."""
+    rows = nc * g * K + (nc * K if fuse else 0)
+    vals = fpb * B if keep else g * B if nc < NS else 0
+    return rows * (NB | 1) + NS * (K + 1) + vals + 36
+
+
+@functools.lru_cache(maxsize=256)
+def _score_plan(F: int, n_nodes: int, O: int, n_bins: int,
+                oblivious: bool) -> ScorePlan:
+    """K3's launch plan from the shapes alone: the features spread over up
+    to SCORE_MAX_CLUSTER blocks; then the first of (keep, fuse), (keep, no
+    fuse), (no keep, fuse), (no keep, no fuse) whose staging fits
+    SCORE_SMEM_BUDGET once nodes per chunk and then features per group are
+    halved as needed; the smallest plan where none fits (the wrapper then
+    checks it against the device's limit).  The result does not depend on
+    the plan: every candidate's arithmetic is fixed and max / min are
+    exact."""
+    K, NB, B = O + 1, n_bins + 1, n_bins
+    S = min(SCORE_MAX_CLUSTER, F)
+    fpb = -(-F // S)
+    S = -(-F // fpb)
+    NS = n_nodes if oblivious else 1
+    for keep, fuse in ((1, 1), (1, 0), (0, 1), (0, 0)):
+        g, nc = fpb, NS
+
+        def words():
+            return _score_words(NB, K, B, NS, fpb, g, nc, keep, fuse)
+        while 4 * words() > SCORE_SMEM_BUDGET and nc > 1:
+            nc = -(-nc // 2)
+        while 4 * words() > SCORE_SMEM_BUDGET and g > 1:
+            g = -(-g // 2)
+        if 4 * words() <= SCORE_SMEM_BUDGET:
+            break
+    return ScorePlan(S, fpb, g, nc, keep, fuse, 4 * words())
+
+
+@functools.lru_cache(maxsize=256)
+def _score_params(index: int, F: int, n_nodes: int, O: int, n_bins: int,
+                  cosine: bool, oblivious: bool, is_root: bool):
+    """Once per device and shape: the plan, the device's shared-memory
+    limit, the fit kernels readied and the cluster checked with the device
+    (raises when it refuses it); returns fit.cu's K3 int array (Q_F ...
+    Q_SMEM)."""
+    plan = _score_plan(F, n_nodes, O, n_bins, oblivious)
+    lib = _library()
+    _smem_fits(torch.device("cuda", index), plan.smem, "level_score")
+    _fit_ready(index)
+    with torch.cuda.device(index):
+        n = lib.gbrl_k3_max_clusters(plan.S, plan.smem)
+    if n < 1:
+        raise RuntimeError(f"level_score: the device cannot run a cluster of "
+                           f"{plan.S} blocks with {plan.smem} B of shared "
+                           f"memory each (query returned {n})")
+    vals = [F, n_nodes, O, n_bins, int(cosine), int(oblivious), int(is_root),
+            *plan[:6], plan.smem]
+    return (ctypes.c_int * len(vals))(*vals)
+
+
 def level_score_cuda(hist: torch.Tensor, blocked: torch.Tensor,
                      feat_w: torch.Tensor, n_bins: int, out_dim: int,
                      score: str, min_data: int, oblivious: bool,
                      is_root: bool):
     """K3: one level's split choice from K2's histogram (arguments and
-    results as ``level_score_plain``)."""
+    results as ``level_score_plain``; the results are views of one packed
+    buffer).  One launch."""
     if hist.device.type == "cpu":
         return level_score_plain(hist, blocked, feat_w, n_bins, out_dim,
                                  score, min_data, oblivious, is_root)
@@ -714,40 +798,176 @@ def level_score_cuda(hist: torch.Tensor, blocked: torch.Tensor,
     if n_nodes > 65535:
         raise ValueError(f"level_score takes at most 65535 nodes, got "
                          f"{n_nodes}")
-    lib = _library()
-    # fit.cu score_smem_floats: prefix sums [O + 1][NB] and node totals
-    _smem_fits(dev, 4 * ((O + 1) * NB + O + 1), "level_score")
-    _fit_ready(_index(dev))
-    f32 = dict(dtype=torch.float32, device=dev)
-    adj = torch.empty((n_nodes, F * n_bins), **f32)
-    stats = torch.empty((n_nodes, O + 2), **f32)
-    best_idx = torch.empty((n_nodes,), dtype=torch.int32, device=dev)
-    best = torch.empty((n_nodes,), **f32)
-    _call(lib, "gbrl_k3_level_score", dev, hist.data_ptr(), blocked.data_ptr(),
-          feat_w.data_ptr(), adj.data_ptr(), stats.data_ptr(),
-          best_idx.data_ptr(), best.data_ptr(), F, n_nodes, O, NB, n_bins,
-          int(score == "cosine"), float(min_data), int(bool(oblivious)),
-          int(bool(is_root)))
+    params = _score_params(_index(dev), F, n_nodes, O, n_bins,
+                           score == "cosine", bool(oblivious), bool(is_root))
+    out = torch.empty((O + 4, n_nodes), dtype=torch.float32, device=dev)
+    _call(_library(), "gbrl_k3_level_score", dev, hist.data_ptr(),
+          blocked.data_ptr(), feat_w.data_ptr(), out.data_ptr(),
+          ctypes.addressof(params), float(min_data))
     launch_counts["level_score"] += 1
-    return best_idx, best, stats[:, O], stats[:, O + 1], stats[:, :O]
+    return out[0].view(torch.int32), out[1], out[2], out[3], out[4:].t()
 
 
 # ============================================================== whole tree
-# K6 (csrc/tree.cu): one cooperative launch fits one numeric tree.
+# K6 (csrc/tree.cu): one thread-block cluster fits one numeric tree.
 NPMAX = 8            # nodes per level K6 takes (tree.cu NPMAX): depth <= 4
+TREE_LEAVES = 16     # leaves K6 takes (depth <= 4)
+# the cluster grows by powers of two up to TREE_MAX_CLUSTER (past the
+# portable 8: a non-portable size) while each rank keeps at least
+# TREE_MIN_TILE samples; tree.cu K6_WARPS warps a block, TREE_SUB samples a
+# staged sub-tile, at most TREE_MAX_GROUP features a histogram group; a
+# rank's histogram of a group takes at most TREE_HIST_BUDGET bytes, its
+# candidate values stay in shared memory up to TREE_SCORE_BUDGET bytes (else
+# in global scratch), and a block at most TREE_SMEM_BUDGET bytes (the
+# histogram budget halves until it fits)
+TREE_MAX_CLUSTER = 16
+TREE_MIN_TILE = 32
+TREE_WARPS = 16
+TREE_SUB = 256
+TREE_MAX_GROUP = 16
+TREE_HIST_BUDGET = 136 * 1024
+TREE_SCORE_BUDGET = 32 * 1024
+TREE_SMEM_BUDGET = 220 * 1024
+# the layout's regions in tree.cu's order (P_PART ... P_SCR)
+TREE_REGIONS = ("part", "red", "sc", "slot", "v", "xb", "rel", "list", "cnt",
+                "totown", "tot", "xch", "choice", "leaf", "shf", "shi", "scr")
+
+
+def _tree_cluster(N: int) -> int:
+    """K6's cluster size: it grows by powers of two up to TREE_MAX_CLUSTER
+    while each rank keeps at least TREE_MIN_TILE samples."""
+    S = 1
+    while S < TREE_MAX_CLUSTER and 2 * S * TREE_MIN_TILE <= N:
+        S *= 2
+    return S
 
 
 def _tree_tiling(N: int, F: int):
-    """K6's sample tiles -> (samples per tile, tiles): about
-    HIST_TARGET_BLOCKS (tile, feature) work items, never fewer than
-    HIST_MIN_TILE samples a tile.  The plain version takes the same tiles,
-    since they set its summation order."""
-    if N == 0:
-        return 1, 0
-    n_tiles = max(1, min(-(-N // HIST_MIN_TILE),
-                         -(-HIST_TARGET_BLOCKS // max(F, 1))))
-    tile = -(-N // n_tiles)
+    """K6's sample tiles -> (samples per tile, tiles): one tile per rank of
+    the cluster (F does not enter; ranks past the last tile take none).  The
+    plain version takes the same tiles, since they set its summation
+    order."""
+    tile = max(1, -(-N // _tree_cluster(N)))
     return tile, -(-N // tile)
+
+
+class TreePlan(NamedTuple):
+    """K6's launch plan: a cluster of ``S`` blocks, rank r taking samples
+    [r * tile, (r + 1) * tile); ``g[d]`` features per histogram group at
+    level d; ``slots`` candidate rows per rank; ``part`` floats of a rank's
+    histograms and ``red`` floats of its reduced rows; ``sc_global``,
+    ``part_global``, ``red_global``: those regions kept in global scratch
+    (``scratch`` floats in all) where shared memory cannot hold them;
+    ``gmax`` the largest group; ``offsets`` of the shared memory's regions
+    (TREE_REGIONS, in floats); ``smem`` bytes per block."""
+    S: int
+    tile: int
+    g: tuple
+    slots: int
+    part: int
+    red: int
+    sc_global: int
+    part_global: int
+    red_global: int
+    scratch: int
+    gmax: int
+    offsets: tuple
+    smem: int
+
+
+def _tree_layout(K: int, B: int, part: int, red: int, sc: int, slots: int,
+                 gmax: int):
+    """(offsets in floats, total bytes) of tree.cu's shared-memory regions
+    (``part``, ``red``, ``sc``: floats held in shared memory)."""
+    sizes = dict(part=part, red=red, sc=sc, slot=2 * slots,
+                 v=TREE_SUB * (K | 1), xb=TREE_SUB * (gmax | 1), rel=TREE_SUB,
+                 list=TREE_LEAVES * TREE_SUB // 2, cnt=TREE_LEAVES,
+                 totown=NPMAX * K, tot=NPMAX * (K + 1), xch=6 * NPMAX,
+                 choice=8 * NPMAX, leaf=TREE_LEAVES * K,
+                 shf=TREE_WARPS * NPMAX, shi=TREE_WARPS * NPMAX,
+                 scr=TREE_WARPS * 32)
+    offsets, at = [], 0
+    for name in TREE_REGIONS:
+        offsets.append(at)
+        at += -(-sizes[name] // 4) * 4          # 16-byte aligned regions
+    return tuple(offsets), 4 * at
+
+
+@functools.lru_cache(maxsize=256)
+def _tree_plan(N: int, F: int, O: int, n_bins: int, D: int,
+               oblivious: bool) -> TreePlan:
+    """K6's launch plan from the shapes alone: the tiling, then per level
+    the features per group (as many as TREE_HIST_BUDGET holds, at most
+    TREE_MAX_GROUP, spread evenly over the groups), the units each rank owns
+    (round robin: (feature, node) pairs, or features with all their nodes
+    when oblivious), its candidate rows, and the layout."""
+    S = _tree_cluster(N)
+    tile = _tree_tiling(N, F)[0]
+    K, NB, B = O + 1, n_bins + 1, n_bins
+    NBq = -(-NB // 4) * 4                       # part's float4-aligned rows
+    budget = TREE_HIST_BUDGET // 4
+    while True:
+        g, part, red_rows, slots = [], 0, 0, 0
+        for d in range(D):
+            nact = 1 << d
+            Cd = nact * K
+            fit = max(1, min(F, TREE_MAX_GROUP, budget // (Cd * NBq)))
+            n_groups = -(-F // fit)
+            gd = -(-F // n_groups)
+            g.append(gd)
+            part = max(part, gd * Cd * NBq)
+            nu = 1 if oblivious else nact
+            red_rows = max(red_rows, -(-gd * nu // S)
+                           * (nact if oblivious else 1) * K)
+            slots = max(slots, sum(-(-min(gd, F - ga) * nu // S)
+                                   for ga in range(0, F, gd)))
+        red = red_rows * (NB | 1)
+        sc_global = int(4 * slots * B > TREE_SCORE_BUDGET)
+        glob = [sc_global, 0, 0]
+        offsets, smem = _tree_layout(K, B, part, red, 0 if sc_global else
+                                     slots * B, slots, max(g))
+        if smem <= TREE_SMEM_BUDGET or budget < NBq * K:
+            break
+        budget //= 2
+    # past the budget even at one feature a group (large O): the ranks'
+    # histograms, then the reduced rows, go to global scratch
+    for i in (1, 2):
+        if smem > TREE_SMEM_BUDGET:
+            glob[i] = 1
+            offsets, smem = _tree_layout(
+                K, B, 0 if glob[1] else part, 0 if glob[2] else red,
+                0 if sc_global else slots * B, slots, max(g))
+    sizes = (slots * B, part, red)
+    scratch = S * sum(-(-n // 4) * 4 for n, on in zip(sizes, glob) if on)
+    return TreePlan(S, tile, tuple(g + [0] * (4 - D)), slots, part, red,
+                    *glob, scratch, max(g), offsets, smem)
+
+
+@functools.lru_cache(maxsize=256)
+def _tree_params(index: int, N: int, F: int, B: int, O: int, D: int,
+                 cosine: bool, oblivious: bool):
+    """Once per device and shape: the plan, the device's shared-memory
+    limit, K6's attribute set and its cluster checked with the device
+    (raises when it refuses it); returns (plan, tree.cu's int array P_N ...
+    P_SMEM)."""
+    plan = _tree_plan(N, F, O, B, D, oblivious)
+    lib = _library()
+    _smem_fits(torch.device("cuda", index), plan.smem, "tree_build")
+    with torch.cuda.device(index):
+        rc = lib.gbrl_k6_prepare(_smem_limit(index))
+        if rc != 0:
+            raise RuntimeError(f"gbrl_k6_prepare failed: CUDA error {rc} "
+                               f"({lib.gbrl_cuda_error_string(rc).decode()})")
+        n = lib.gbrl_k6_max_clusters(plan.S, plan.smem)
+    if n < 1:
+        raise RuntimeError(f"tree_build: the device cannot run a cluster of "
+                           f"{plan.S} blocks with {plan.smem} B of shared "
+                           f"memory each (query returned {n})")
+    vals = ([N, F, B, O, D, int(cosine), int(oblivious), plan.S, plan.tile]
+            + list(plan.g) + [plan.slots, plan.sc_global, plan.part_global,
+                              plan.red_global, plan.part, plan.red,
+                              plan.gmax] + list(plan.offsets) + [plan.smem])
+    return plan, (ctypes.c_int * len(vals))(*vals)
 
 
 def _tile_sums(idx: torch.Tensor, vals: torch.Tensor, n_idx: int,
@@ -850,9 +1070,10 @@ def tree_build_cuda(Xb: torch.Tensor, cand: torch.Tensor, feat_w: torch.Tensor,
     int32 (f * n_bins + b), do_split [D, NPMAX] bool, stats [D, NPMAX,
     O + 3] f32 (best score, node count, parent score, node sums [O]), and
     leaf [2^D, O + 1] f32, the wg sums of each leaf.  Deterministic: the
-    same inputs give the same bits, equal to ``tree_build_plain``'s."""
+    same inputs give the same bits, equal to ``tree_build_plain``'s at
+    ``_tree_tiling``'s tile."""
     N, F = Xb.shape
-    tile, n_tiles = _tree_tiling(N, F)
+    tile = _tree_tiling(N, F)[0]
     args = (Xb, cand, feat_w, bgw, wg, max_depth, n_bins, out_dim, score,
             min_data, oblivious)
     if Xb.device.type == "cpu":
@@ -872,22 +1093,19 @@ def tree_build_cuda(Xb: torch.Tensor, cand: torch.Tensor, feat_w: torch.Tensor,
             f"{tuple(wg.shape)} do not fit n_bins={B}, out_dim={O}")
     if not 1 <= D or (1 << (D - 1)) > NPMAX:
         raise ValueError(f"tree_build takes depths 1 to 4, got {D}")
-    lib = _library()
-    _smem_fits(dev, lib.gbrl_k6_smem_bytes(O, B, D), "tree_build")
-    f32 = dict(dtype=torch.float32, device=dev)
-    C = (1 << (D - 1)) * K
-    part = torch.empty((n_tiles, F, C, B + 1), **f32)
-    hist = torch.empty((F, C, B + 1), **f32)
-    adj = torch.empty((1 << (D - 1), F * B), **f32)
-    nstat = torch.empty((NPMAX, O + 2), **f32)
-    lpart = torch.empty((n_tiles, 1 << D, K), **f32)
-    best_idx = torch.empty((D, NPMAX), dtype=torch.int32, device=dev)
-    do_split = torch.empty((D, NPMAX), dtype=torch.uint8, device=dev)
-    stats = torch.empty((D, NPMAX, O + 3), **f32)
-    leaf = torch.empty((1 << D, K), **f32)
-    _call(lib, "gbrl_k6_tree_build", dev, *(t.data_ptr() for t in (
-        Xb, cand, feat_w, bgw, wg, part, hist, adj, nstat, lpart, best_idx,
-        do_split, stats, leaf)), N, F, B, O, D, tile, n_tiles,
-        int(score == "cosine"), float(min_data), int(bool(oblivious)))
+    plan, params = _tree_params(_index(dev), N, F, B, O, D,
+                                score == "cosine", bool(oblivious))
+    # one allocation: best_idx (int32) | stats | leaf (f32) | do_split (u8)
+    sizes = [D * NPMAX, D * NPMAX * (O + 3), (1 << D) * K, -(-D * NPMAX // 4)]
+    out = torch.empty((sum(sizes),), dtype=torch.float32, device=dev)
+    idx, stats, leaf, split = out.split(sizes)
+    scg = (torch.empty((plan.scratch,), dtype=torch.float32, device=dev)
+           if plan.scratch else out)
+    _call(_library(), "gbrl_k6_tree_build", dev, Xb.data_ptr(),
+          cand.data_ptr(), feat_w.data_ptr(), bgw.data_ptr(), wg.data_ptr(),
+          scg.data_ptr(), idx.data_ptr(), split.data_ptr(), stats.data_ptr(),
+          leaf.data_ptr(), ctypes.addressof(params), float(min_data))
     launch_counts["tree_build"] += 1
-    return best_idx, do_split.bool(), stats, leaf
+    return (idx.view(torch.int32).view(D, NPMAX),
+            split.view(torch.bool)[:D * NPMAX].view(D, NPMAX),
+            stats.view(D, NPMAX, O + 3), leaf.view(1 << D, K))

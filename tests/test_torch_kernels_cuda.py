@@ -227,6 +227,73 @@ def test_level_score_matches_plain(cuda_device, oblivious, score, n_nodes,
         assert torch.equal(a, b)
 
 
+def _score_args(rng, dev, F, n_nodes, O, oblivious, score, min_data,
+                B=256, case=None):
+    """K3's arguments from a histogram of random bucket ids and node rows:
+    ``case`` "empty_node" leaves node 0 without samples, "blocked_feature"
+    blocks feature 1 at every node, "neg_inf_row" blocks every candidate of
+    node 0 (greedy: an all -inf row; oblivious: every node)."""
+    n = 3000
+    Xb = rng.integers(0, B + 1, (n, F)).astype(np.int32)
+    rel = rng.integers(0, n_nodes, n)
+    if case == "empty_node" and n_nodes > 1:
+        rel[rel == 0] = 1
+    rows = np.concatenate([rng.normal(size=(n, O)),
+                           np.ones((n, 1))], 1).astype(np.float32)
+    nd = np.zeros((n, n_nodes, O + 1), np.float32)
+    nd[np.arange(n), rel] = rows
+    hist = K.level_histogram_plain(torch.from_numpy(Xb),
+                                   torch.from_numpy(nd.reshape(n, -1)), B + 1)
+    blocked = rng.random((n_nodes, F, B)) < 0.05
+    if case == "blocked_feature":
+        blocked[:, 1 % F] = True
+    if case == "neg_inf_row":
+        blocked[:n_nodes if oblivious else 1] = True
+    fw = rng.uniform(0.5, 1.5, F).astype(np.float32)
+    fw[F // 2] = 0.0
+    return (hist.to(dev), torch.from_numpy(blocked).to(dev),
+            torch.from_numpy(fw).to(dev), B, O, score, min_data, oblivious,
+            n_nodes == 1)
+
+
+@pytest.mark.parametrize("F,n_nodes,O,oblivious,score,min_data,case", [
+    (4, 1, 3, False, "cosine", 0, None),             # the PPO shape
+    (4, 8, 3, False, "l2", 20, None),
+    (4, 8, 3, True, "cosine", 20, None),
+    (16, 8, 3, True, "l2", 0, None),                 # oblivious, 8 nodes
+    (300, 1, 3, False, "cosine", 0, None),
+    (300, 8, 3, True, "cosine", 10, None),
+    (16, 16, 3, False, "cosine", 0, None),           # greedy past depth 4
+    (16, 512, 3, False, "l2", 5, None),
+    (16, 8, 3, False, "cosine", 30, "empty_node"),
+    (16, 8, 3, True, "cosine", 30, "empty_node"),
+    (16, 4, 3, False, "l2", 0, "blocked_feature"),
+    (16, 4, 3, False, "cosine", 0, "neg_inf_row"),
+    (16, 4, 3, True, "cosine", 0, "neg_inf_row"),
+    (16, 8, 1, False, "cosine", 0, None),
+    (16, 8, 8, True, "l2", 0, None),
+    (5, 2, 8, False, "cosine", 0, None),
+])
+def test_level_score_shapes(cuda_device, F, n_nodes, O, oblivious, score,
+                            min_data, case):
+    """K3 across its plan: few and many features per cluster, many greedy
+    nodes, oblivious levels, a node without samples, a fully blocked
+    feature, an all -inf row, O = 1 and 8.  Bit-equal to the plain version
+    on every output, and the same bits on three launches."""
+    rng = np.random.default_rng(F * 1000 + n_nodes + O)
+    args = _score_args(rng, cuda_device, F, n_nodes, O, oblivious, score,
+                       min_data, case=case)
+    before = K.launch_counts["level_score"]
+    runs = [K.level_score_cuda(*args) for _ in range(3)]
+    want = K.level_score_plain(*args)
+    torch.cuda.synchronize()
+    assert K.launch_counts["level_score"] == before + 3
+    for got in runs:
+        for a, b in zip(got, want):
+            assert a.shape == b.shape and a.dtype == b.dtype
+            assert torch.equal(a, b)
+
+
 def test_build_tree_on_card_matches_cpu(cuda_device):
     from gbrl_tpu_torch.config import TreeConfig
     from gbrl_tpu_torch.ops import candidates as C
@@ -299,6 +366,47 @@ def test_tree_build_matches_plain(cuda_device, oblivious, score, n, f, depth,
         assert torch.equal(x[~fin], y[~fin])
         err = (x[fin] - y[fin]).abs().max().item()
         assert err <= 1e-6 * y[fin].abs().max().item(), err
+
+
+@pytest.mark.parametrize("n,f,o,depth,oblivious", [
+    (1, 4, 3, 4, False),                 # fewer samples than a cluster
+    (5, 4, 3, 4, True),
+    (333, 4, 3, 3, False),               # N not a multiple of 32
+    (700, 1, 3, 4, False),               # one feature
+    (1000, 64, 3, 4, False),             # many features, global values
+    (600, 64, 3, 4, True),
+    (512, 4, 1, 4, False),               # O = 1
+    (512, 4, 8, 4, True),                # O = 8
+    (512, 4, 8, 2, False),
+    (512, 4, 3, 1, True),
+    (4096, 16, 3, 2, False),
+    (512, 4, 26, 4, False),              # histograms in global scratch
+    (300, 4, 26, 4, True),               # ... and the reduced rows
+])
+def test_tree_build_shapes(cuda_device, n, f, o, depth, oblivious):
+    """K6 across its cluster plan (O = 26: the regions shared memory cannot
+    hold in global scratch), with a fifth of the rows of zero weight:
+    the choices equal to the plain version's at the plan's tile, the values
+    within 1e-6 of scale, the same bits on three launches."""
+    rng = np.random.default_rng(n * 7 + f + o + depth)
+    a = _tree_args(rng, cuda_device, n, f, depth, "cosine", 0, oblivious,
+                   o=o)
+    runs = [K.tree_build_cuda(*a) for _ in range(3)]
+    want = K.tree_build_plain(*a, K._tree_tiling(n, f)[0])
+    torch.cuda.synchronize()
+    for got in runs[1:]:
+        for x, y in zip(got, runs[0]):
+            assert torch.equal(x, y)
+    got = runs[0]
+    for x, y in zip(got[:2], want[:2]):
+        assert torch.equal(x, y)
+    for x, y in zip(got[2:], want[2:]):
+        fin = torch.isfinite(y)
+        assert torch.equal(fin, torch.isfinite(x))
+        assert torch.equal(x[~fin], y[~fin])
+        if fin.any():
+            err = (x[fin] - y[fin]).abs().max().item()
+            assert err <= 1e-6 * y[fin].abs().max().item(), err
 
 
 def test_tree_build_rejects_bad_inputs(cuda_device):

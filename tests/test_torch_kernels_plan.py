@@ -1,12 +1,15 @@
-"""K2's launch plan (``ops.kernels._hist_plan``), checked on the CPU for
-every shape the card tests and ``chip_smoke.py`` give the kernel: the
-slices and the blocks' shares of them cover every (feature, column, bucket)
-exactly once, the sample tiles cover every sample once, and each block stays
-within the shared-memory budget, the portable cluster size and the grid's
-limits.  The index arithmetic below repeats ``level_hist_kernel``'s
-(``csrc/fit.cu``)."""
+"""The cluster kernels' launch plans, checked on the CPU for every shape the
+card tests and ``chip_smoke.py`` give them.  K2 (``ops.kernels._hist_plan``):
+the slices and the blocks' shares of them cover every (feature, column,
+bucket) exactly once, the sample tiles cover every sample once, and each
+block stays within the shared-memory budget, the portable cluster size and
+the grid's limits (the index arithmetic repeats ``level_hist_kernel``'s,
+``csrc/fit.cu``).  K3 (``_score_plan``) and K6 (``_tree_plan``): the work
+each rank owns, as ``level_score_kernel`` and ``tree_build_kernel`` index
+it."""
 import numpy as np
 import pytest
+import torch
 
 from gbrl_tpu_torch.ops import kernels as K
 
@@ -68,3 +71,152 @@ def test_hist_plan_depends_on_shapes_only():
         plan = K._hist_plan(N, 16 if N == 4096 else 4, C, 257)
         assert (plan.S, plan.fs, plan.br) == (8, 4, 257)
         assert plan == K._hist_plan(N, 16 if N == 4096 else 4, C, 257)
+
+
+# ------------------------------------------------------------------ K3
+SCORE_SHAPES = [(4, 1, 3, False), (4, 8, 3, False), (4, 8, 3, True),
+                (16, 1, 3, False), (16, 8, 3, True), (300, 1, 3, False),
+                (300, 8, 3, True), (16, 16, 3, False), (16, 512, 3, False),
+                (16, 8, 1, False), (16, 8, 8, True), (5, 2, 8, False),
+                (1, 1, 3, False), (16, 64, 3, True), (16, 8, 224, False),
+                (3000, 2, 3, False), (40, 2048, 20, True)]
+
+
+@pytest.mark.parametrize("F,n_nodes,O,oblivious", SCORE_SHAPES)
+def test_score_plan_covers_each_node_feature_once(F, n_nodes, O, oblivious):
+    """K3's plan: the clusters, ranks, feature groups and node chunks of
+    level_score_kernel (csrc/fit.cu) visit every (node, feature) exactly
+    once per pass; blocks own contiguous features in rank order, so the
+    first index of the lowest rank with a hit is the level's; each block's
+    shared memory is the budget's or, past it, the smallest plan's."""
+    B = 256
+    plan = K._score_plan(F, n_nodes, O, B, oblivious)
+    S, fpb, g, nc = plan.S, plan.fpb, plan.g, plan.nc
+    assert 1 <= S <= K.SCORE_MAX_CLUSTER and (S - 1) * fpb < F <= S * fpb
+    NS = n_nodes if oblivious else 1
+    units = 1 if oblivious else n_nodes       # clusters: fit.cu k3_config
+    assert plan.smem == 4 * K._score_words(B + 1, O + 1, B, NS, fpb, g, nc,
+                                           plan.keep, plan.fuse)
+    if plan.smem > K.SCORE_SMEM_BUDGET:       # only the smallest plan
+        assert (g, nc, plan.keep, plan.fuse) == (1, 1, 0, 0)
+    hits = np.zeros((n_nodes, F), np.int64)
+    starts = []
+    for bx in range(units * S):
+        unit, rank = divmod(bx, S)
+        node0 = 0 if oblivious else unit
+        fa, fb = rank * fpb, min(F, rank * fpb + fpb)
+        assert fa < fb
+        if unit == 0:
+            starts.append(fa)
+        for ga in range(fa, fb, g):
+            for c0 in range(0, NS, nc):
+                nodes = node0 + np.arange(c0, min(NS, c0 + nc))
+                hits[np.ix_(nodes, np.arange(ga, min(fb, ga + g)))] += 1
+    assert (hits == 1).all()
+    assert starts == sorted(starts)
+
+
+@pytest.mark.parametrize("oblivious", [False, True])
+def test_score_plan_argmax_composes(oblivious):
+    """The plan's argmax, emulated: each rank's max and first hit over its
+    own features, then the cluster's max and the lowest rank's hit, equals
+    the plain version's choice on the same candidate values."""
+    rng = np.random.default_rng(3)
+    F, n_nodes, O, B = 13, 4, 3, 16
+    Xb = torch.from_numpy(rng.integers(0, B + 1, (500, F)).astype(np.int32))
+    nd = torch.from_numpy(rng.normal(size=(500, n_nodes * (O + 1)))
+                          .astype(np.float32))
+    hist = K.level_histogram_plain(Xb, nd, B + 1)
+    blocked = torch.from_numpy(rng.random((n_nodes, F, B)) < 0.3)
+    fw = torch.ones(F)
+    args = (hist, blocked, fw, B, O, "cosine", 0, oblivious, False)
+    rows, scale, *_ = K.level_score_rows(*args)
+    want = K.level_score_plain(*args)
+    plan = K._score_plan(F, n_nodes, O, B, oblivious)
+    for r_i, row in enumerate(rows):
+        row = row.numpy()
+        parts = [row[r * plan.fpb * B:min(F, (r + 1) * plan.fpb) * B]
+                 for r in range(plan.S)]
+        m = max(p.max() for p in parts)
+        sc = float(scale.reshape(-1)[r_i]) if scale.dim() else 0.0
+        tol = np.float32((abs(m) + np.float32(sc)) * np.float32(2e-6)) \
+            if np.isfinite(m) else np.float32(0)
+        lim = np.float32(m - tol)
+        q = next(r * plan.fpb * B + int(np.argmax(p >= lim))
+                 for r, p in enumerate(parts) if (p >= lim).any())
+        assert q == int(want[0][r_i])
+
+
+# ------------------------------------------------------------------ K6
+TREE_SHAPES = [(n, f, o, d, obl) for n, f, o, d in (
+    (512, 4, 3, 4), (4096, 16, 3, 4), (1, 4, 3, 4), (5, 4, 3, 4),
+    (333, 4, 3, 3), (700, 1, 3, 4), (1000, 64, 3, 4), (600, 64, 3, 4),
+    (512, 4, 1, 4), (512, 4, 8, 4), (512, 4, 8, 2), (512, 4, 3, 1),
+    (4096, 16, 3, 2), (700, 5, 3, 3), (300, 3, 3, 1), (1000, 6, 3, 2),
+    (64, 3, 3, 4), (256, 4, 3, 4), (512, 4, 26, 4), (300, 4, 26, 4))
+    for obl in (False, True)]
+
+
+@pytest.mark.parametrize("N,F,O,D,oblivious", TREE_SHAPES)
+def test_tree_plan_covers_each_sample_and_unit_once(N, F, O, D, oblivious):
+    """K6's plan for every shape of the card tests and chip_smoke.py: the
+    ranks' tiles cover every sample once in rank order (the plain version's
+    tiles); at every level the groups and the ranks' round-robin units cover
+    each (feature, node) once, within the reduced rows and candidate slots
+    the layout holds; the regions do not overlap; the block fits the
+    budget and the cluster limit."""
+    B, KO = 256, O + 1
+    plan = K._tree_plan(N, F, O, B, D, oblivious)
+    S, tile = plan.S, plan.tile
+    assert S in (1, 2, 4, 8, 16) and S <= K.TREE_MAX_CLUSTER
+    assert (tile, -(-N // tile)) == K._tree_tiling(N, F)
+    seen = np.zeros(N, np.int64)
+    last = -1
+    for r in range(S):
+        lo, hi = min(N, r * tile), min(N, r * tile + tile)
+        seen[lo:hi] += 1
+        assert lo >= last
+        last = hi
+    assert (seen == 1).all()
+    assert S == 1 or tile >= K.TREE_MIN_TILE
+    assert plan.smem <= K.TREE_SMEM_BUDGET
+    offs = list(plan.offsets)
+    assert offs == sorted(offs) and 4 * offs[-1] < plan.smem
+    sizes = dict(zip(K.TREE_REGIONS, np.diff(offs + [plan.smem // 4])))
+    NBp = (B + 1) | 1
+    for d in range(D):
+        nact, g = 1 << d, plan.g[d]
+        Cd = nact * KO
+        assert 1 <= g <= min(F, K.TREE_MAX_GROUP)
+        assert g * Cd * -(-(B + 1) // 4) * 4 <= (
+            plan.part if plan.part_global else sizes["part"])
+        nu = 1 if oblivious else nact
+        ru = (nact if oblivious else 1) * KO
+        hits = np.zeros((F, nact), np.int64)
+        slots = np.zeros(S, np.int64)
+        for ga in range(0, F, g):
+            U = min(g, F - ga) * nu
+            for r in range(S):
+                own = [u for u in range(r, U, S)]
+                assert len(own) * ru * NBp <= (
+                    plan.red if plan.red_global else sizes["red"])
+                slots[r] += len(own)
+                for u in own:
+                    j = u // nu
+                    nodes = range(nact) if oblivious else [u % nu]
+                    for node in nodes:
+                        hits[ga + j, node] += 1
+        assert (hits == 1).all()
+        assert slots.max() <= plan.slots
+    if not plan.sc_global:
+        assert plan.slots * B <= sizes["sc"]
+    glob = [(n, on) for n, on in ((plan.slots * B, plan.sc_global),
+                                  (plan.part, plan.part_global),
+                                  (plan.red, plan.red_global))]
+    assert plan.scratch >= S * sum(n for n, on in glob if on)
+    # a region goes to global memory only when shared memory cannot hold it
+    assert plan.part_global <= (KO >= 20)
+    assert 2 * plan.slots <= sizes["slot"]
+    assert K.TREE_SUB * (plan.gmax | 1) <= sizes["xb"]
+    assert K.TREE_SUB * (KO | 1) <= sizes["v"]
+    assert K.TREE_LEAVES * K.TREE_SUB <= 2 * sizes["list"]

@@ -108,10 +108,30 @@ def test_k6_path_min_data_and_weights(policy, min_data, depth):
     _assert_same_tree(tt, level)
 
 
+@pytest.mark.parametrize("N,policy", [(5, "greedy"), (100, "oblivious"),
+                                      (513, "greedy")])
+def test_k6_cluster_tiles_match_jax(N, policy):
+    """tree_build_cuda on CPU tensors (tree_build_plain at the cluster
+    plan's tile: one rank, two, eight with a ragged last tile) against the
+    JAX K6 in interpret mode and the port's level path."""
+    rng = np.random.default_rng(N)
+    F, O, B = 3, 2, 8
+    kw = dict(input_dim=F, output_dim=O, n_num_features=F, max_depth=3,
+              n_bins=B, grow_policy=policy, split_score_func="l2",
+              generator_type="quantile")
+    X = rng.normal(size=(N, F)).astype(np.float32)
+    g = rng.normal(size=(N, O)).astype(np.float32)
+    w = (rng.random(N) > 0.1).astype(np.float32)
+    jt, tt, level = _trees(kw, X, g, w, np.ones(F, np.float32))
+    _assert_same_tree(tt, jt)
+    _assert_same_tree(tt, level)
+
+
 def test_tree_build_plain_order_and_outputs():
-    """tree_build_cuda on CPU tensors is tree_build_plain at K6's tiling:
-    two calls give the same bits; its leaf sums equal a per-tile sequential
-    sum; levels past a node's 2^d slots stay zero."""
+    """tree_build_cuda on CPU tensors is tree_build_plain at K6's tiling
+    (one tile per rank of the cluster plan): two calls give the same bits;
+    its leaf sums equal a per-tile sequential sum; levels past a node's 2^d
+    slots stay zero."""
     rng = np.random.default_rng(5)
     N, F, O, B, D = 300, 3, 2, 8, 3
     Xb = torch.from_numpy(rng.integers(0, B + 1, (N, F)).astype(np.int32))
@@ -134,6 +154,8 @@ def test_tree_build_plain_order_and_outputs():
     assert leaf[:, O].sum().item() == float((g[:, O] > 0).sum())
     tile, n_tiles = K._tree_tiling(N, F)
     assert n_tiles * tile >= N > (n_tiles - 1) * tile
+    assert n_tiles <= K._tree_cluster(N) == K._tree_plan(
+        N, F, O, B, D, False).S
     # leaf sums: sequential per tile, then over the tiles in order
     rel = np.zeros(N, np.int64)
     bi, sp = best_idx.numpy(), do_split.numpy()
