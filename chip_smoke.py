@@ -19,22 +19,29 @@ Phases (any failure raises; the script then exits nonzero):
   2 build    nvcc builds the kernels from the sources in the checkout;
   3 parity   K4 and K5 against their plain PyTorch versions at full width
              (ties x == thr, NaN rows, pass-through nodes, stale weights
-             beyond n_trees), K5 bit-equal to K4 on oblivious ensembles,
-             the edge cases N = 1000, n_trees in {0, 1, 129}, and
-             ``ops.predict.weighted_leaf_sum`` on wide (F = 300) and deep
-             (depth 8) numeric ensembles, which must reach the kernels;
+             beyond n_trees), the coefficients given apart (the same bits
+             as pre-scaled weights, and on two launches), K5 bit-equal to
+             K4 on oblivious ensembles, the edge cases N = 1000, n_trees in
+             {0, 1, 129}, and ``ops.predict.weighted_leaf_sum`` on wide
+             (F = 300), deep (depth 8, 11, 12) and wide-output (O = 11)
+             numeric ensembles, which must reach the kernels once each;
   4 serving  greedy, oblivious and Adam checkpoints saved by the port,
              loaded on the card, requests answered and held against the
              same checkpoint loaded on the CPU; launch counts set to 0
              before and read after: K4 and K5 must have run;
-  5 times    request latency (host clock, synchronized) and kernel times
-             (CUDA events) beside the plain versions and the bound;
+  5 times    request latency (host clock, synchronized); K4 and K5 at the
+             serving shape, the PPO rollout predict (N = 4096, 160 of 1024
+             trees, F = 4) and A2C's cv_momentum (N = 1024, 20 oblivious
+             trees): call time (CUDA events), host time (enqueue) and
+             device time per call (torch.profiler; one device kernel per
+             call asserted) beside the plain versions and the bound;
   6 fit parity  K1 bit-equal to its plain version (ties, duplicate
              candidates, NaN rows); K2 within RTOL / ATOL of its plain
              version at C = 4, 8, 16, 32 and the same bits on two launches;
              K3's chosen indices equal to its plain version's and its
              values within 1e-6 (greedy/oblivious x cosine/l2 x min_data,
-             a zero feature weight); build_tree at F = 300 / depth 4 and
+             a zero feature weight); K3 at O = 256 (rows in global
+             scratch) likewise; build_tree at F = 300 / depth 4 and
              F = 16 / depth 6 reaches K2 / K3;
   7 training launch counts set to 0, then: a shared ActorCritic on the card,
              greedy and then oblivious, takes 50 steps (K1 = 50, K2 = K3 =
@@ -91,10 +98,23 @@ REQUESTS = 100         # timed requests per latency figure (p90: 10 beyond)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 FLOPS_PER_INSTR = 2
-# wide and deep numeric shapes (F, depth) that ops.predict must send to the
-# kernels: the TPU's VMEM guard (at most 256 features, depth 6) is not theirs
-DISPATCH_SHAPES = ((300, 4), (16, 8))
+# wide, deep and wide-output numeric shapes (F, depth, O) that ops.predict
+# must send to the kernels: the TPU's VMEM guard (at most 256 features,
+# depth 6) is not theirs, and depth 11 / 12 lie past the shared-memory
+# budget (the global route); O = 11 is one launch
+DISPATCH_SHAPES = ((300, 4, 3), (16, 8, 3), (16, 11, 3), (16, 12, 3),
+                   (16, 4, 11))
 DISPATCH_CAPACITY, DISPATCH_TREES = 512, 400
+# K4 / K5 timed at the serving shape (above) and at the RL shapes: the PPO
+# rollout predict (rl/ppo.py:279; 4096 CartPole rows, the five phases' 160
+# greedy trees in the default capacity of 1024) and A2C's cv_momentum
+# (1024 rows, 20 oblivious trees): (label, kernel, policy, N, F, T_cap,
+# n_trees)
+PREDICT_TIMES = (("ppo_rollout", "weighted_leaf_sum", "greedy", 4096, 4,
+                  1024, 160),
+                 ("a2c_cv", "oblivious_leaf_sum", "oblivious", 1024, 4,
+                  1024, 20))
+WIDE_SCORE_O = 256      # K3 past its shared-memory budget (phase 6)
 REPLACES = {"weighted_leaf_sum": "gbrl_tpu/ops/pallas_kernels.py:723",
             "oblivious_leaf_sum": "gbrl_tpu/ops/pallas_kernels.py:851",
             "bucketize": "gbrl_tpu/ops/pallas_kernels.py:46",
@@ -199,7 +219,7 @@ def smi_line() -> str:
 
 def synthetic_ensemble(rng, policy: str, f: int = F, depth: int = DEPTH,
                        capacity: int = CAPACITY,
-                       n_trees: int = N_TREES) -> dict:
+                       n_trees: int = N_TREES, o: int = O) -> dict:
     """An ``ensemble_to_numpy`` dict (full width by default).  Greedy:
     random feat in [-1, f) and split masks (pass-through nodes included).  Oblivious: one
     (feat, thr, is_split) per level broadcast over the level, some levels
@@ -226,10 +246,10 @@ def synthetic_ensemble(rng, policy: str, f: int = F, depth: int = DEPTH,
         feat=feat, thr=thr,
         cat_code=np.full((capacity, IN), -1, np.int32), is_split=spl,
         is_numeric=np.ones((capacity, IN), bool),
-        leaf_values=rng.normal(size=(capacity, L, O)).astype(np.float32),
+        leaf_values=rng.normal(size=(capacity, L, o)).astype(np.float32),
         counts=np.zeros((capacity, 2 * L - 1), np.float32),
         depths=np.full((capacity,), depth, np.int32),
-        bias=rng.normal(size=O).astype(np.float32),
+        bias=rng.normal(size=o).astype(np.float32),
         n_trees=np.asarray(n_trees, np.int32))
 
 
@@ -359,20 +379,6 @@ def profile_requests(fn, n: int = 20, what: str = "request") -> None:
         if dev_us(e) > 0:
             print(f"    {e.key[:60]:60s} calls {e.count:5d} "
                   f"device {dev_us(e) / n:8.2f} us/{what}")
-
-
-def bound_ms(name: str, n: int, nt: int) -> tuple:
-    """Least time for the work on an H100 SXM: bytes each input read once
-    and the output written once, over HBM bandwidth, against compares and
-    adds (depth + O per sample and live tree, FLOPS_PER_INSTR each) over
-    the f32 peak."""
-    IN, L = (1 << DEPTH) - 1, 1 << DEPTH
-    nodes = IN if name == "weighted_leaf_sum" else DEPTH
-    nbytes = n * F * 4 + nt * nodes * 9 + nt * L * O * 4 + n * O * 4 + 4
-    ops = n * nt * (DEPTH + O) * FLOPS_PER_INSTR
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def check_close(what: str, got, want) -> float:
@@ -595,6 +601,34 @@ def phase_fit_parity(rng, dev):
         args["level_score"].append((h1, torch.zeros_like(blocked), fw.clone()
                                     .fill_(1.0), N_BINS, O, "cosine", 0,
                                     False, d == 0))
+    # K3 past its shared-memory budget: at O = 256 one (node, feature)'s
+    # rows are 257 x 257 floats, staged in global scratch
+    n_nodes = 8
+    gw = torch.from_numpy(rng.normal(size=(N, WIDE_SCORE_O))
+                          .astype(np.float32)).to(dev)
+    rel = torch.from_numpy(rng.integers(0, n_nodes, N).astype(np.int32)
+                           ).to(dev)
+    hw = K.level_histogram_cuda(kb, FT._node_expand(rel, gw, w, n_nodes), NB)
+    blocked = torch.from_numpy(rng.random((n_nodes, F, N_BINS)) < 0.05
+                               ).to(dev)
+    for obl in (False, True):
+        assert K._score_plan(F, n_nodes, WIDE_SCORE_O, N_BINS, obl).glob
+        before = K.launch_counts["level_score"]
+        a = (hw, blocked, fw, N_BINS, WIDE_SCORE_O, "cosine", 40, obl, False)
+        got = K.level_score_cuda(*a)
+        want = K.level_score_plain(*a)
+        torch.cuda.synchronize()
+        assert K.launch_counts["level_score"] == before + 1
+        assert torch.equal(got[0], want[0]), (
+            f"K3 O={WIDE_SCORE_O} obl={obl}: index {got[0].tolist()} vs "
+            f"{want[0].tolist()}")
+        err = max(max_err(x, y) for x, y in zip(got[1:], want[1:]))
+        assert err <= 1e-6, f"K3 O={WIDE_SCORE_O} values err {err}"
+        errs["level_score"] = max(errs["level_score"], err)
+        print(f"  K3 O={WIDE_SCORE_O} ({n_nodes} nodes, "
+              f"{'oblivious' if obl else 'greedy'}, rows in global "
+              f"scratch): indices equal to the plain version, values max "
+              f"abs err {err:.3g}")
     for f, depth in WIDE_TREES:
         cfg = fit_config(f, depth)
         Xw = rng.normal(size=(N, f)).astype(np.float32)
@@ -735,6 +769,20 @@ def fit_bounds(name: str, a) -> tuple:
     """(bytes, operations) one call must at least move and do: each input
     read once, each output written once; FLOPS_PER_INSTR per compare, add,
     multiply, division or square root, counted for this call's data."""
+    if name in PREDICT_KERNELS:
+        # K4 / K5: X, the nodes read (K4 every node, K5 one per level) and
+        # every leaf value and coefficient of the live trees, n_trees, the
+        # output; a compare per level and an add per column for every
+        # (sample, live tree), a product per live leaf value
+        X, feat, thr, spl, lv, depth, ntd, coeff = a
+        n, f = X.shape
+        nt, o = int(ntd.item()), lv.shape[-1]
+        L = 1 << depth
+        nodes = (L - 1) if name == "weighted_leaf_sum" else depth
+        nbytes = (4 * n * f + nt * nodes * 9 + 4 * nt * L * o + 4 * nt * o
+                  + 4 * n * o + 4)
+        ops = n * nt * (depth + o) + nt * L * o
+        return nbytes, ops * FLOPS_PER_INSTR
     if name == "tree_build":
         # per level: one add per nonzero (sample, column) for each feature,
         # the prefix sums, the scores and argmax of each node's candidates
@@ -870,7 +918,9 @@ def fit_kernel_times(name: str, calls: list, fast, plain=None,
     return tot
 
 
-DEVICE_KERNEL = {"bucketize": "bucketize_kernel",
+DEVICE_KERNEL = {"weighted_leaf_sum": "leaf_sum_",
+                 "oblivious_leaf_sum": "leaf_sum_",
+                 "bucketize": "bucketize_kernel",
                  "level_histogram": "level_hist_kernel",
                  "level_score": "level_score_kernel",
                  "tree_build": "tree_build_kernel"}
@@ -1486,6 +1536,69 @@ def phase_rl_times(rng, dev, ppo: dict, tree_args: dict, tree_err: float):
     return entry
 
 
+def phase_predict_times(rng, dev, kernel_args: dict, launches: dict,
+                        errs: dict) -> list:
+    """Phase 5, kernels: K4 and K5 at the serving shape (greedy for K4,
+    oblivious for K5) and at the RL shapes of PREDICT_TIMES (first held
+    against their plain versions): call_ms (one call between CUDA events),
+    host_ms (enqueue) and kernel_ms (profiler; one device kernel per call is
+    asserted), the plain version's call time and the bound.  Returns the
+    two kernels' JSON entries."""
+    import torch
+    from gbrl_tpu_torch.ops import kernels as K
+    fns = {"weighted_leaf_sum": (K.weighted_leaf_sum_cuda,
+                                 K.weighted_leaf_sum_plain),
+           "oblivious_leaf_sum": (K.oblivious_leaf_sum_cuda,
+                                  K.oblivious_leaf_sum_plain)}
+    cases = [("serving", "weighted_leaf_sum",
+              kernel_args[("weighted_leaf_sum", "greedy")], N_TREES),
+             ("serving", "oblivious_leaf_sum",
+              kernel_args[("oblivious_leaf_sum", "oblivious")], N_TREES)]
+    for label, name, policy, n, f, cap, nt in PREDICT_TIMES:
+        arrs = synthetic_ensemble(rng, policy, f, DEPTH, cap, nt)
+        t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in
+             (observations(rng, arrs, n, f), arrs["feat"], arrs["thr"],
+              arrs["is_split"], arrs["leaf_values"])]
+        cd = torch.from_numpy(rng.uniform(0.01, 0.1, size=(cap, O))
+                              .astype(np.float32)).to(dev)
+        ntd = torch.tensor(nt, dtype=torch.int32, device=dev)
+        a = tuple(t) + (DEPTH, ntd, cd)
+        fast, plain = fns[name]
+        got = fast(*a)
+        torch.cuda.synchronize()
+        check_close(f"{label} {name} N={n} F={f} n_trees={nt}", got,
+                    plain(*t, DEPTH, nt, cd))
+        cases.append((label, name, a, nt))
+    shapes = {name: {} for name in fns}
+    for label, name, a, nt in cases:
+        fast, plain = fns[name]
+        tm = fit_kernel_times(name, [a], fast,
+                              lambda *x: plain(*x[:6], nt, x[7]))
+        n, f = a[0].shape
+        assert_one_kernel(name, label, tm["device_kernels"])
+        print(f"  {name} [{label}: N={n} F={f} n_trees={nt} of "
+              f"{a[1].shape[0]}]: call {tm['call_ms']:.5f} ms, host "
+              f"{tm['host_ms']:.5f} ms, kernel {tm['kernel_ms']} ms (device "
+              f"kernels per call {tm['device_kernels']}) | plain "
+              f"{tm['plain_ms']:.5f} ms | bound {tm['bound_ms']:.7f} ms "
+              f"({tm['bound_by']})")
+        shapes[name][label] = {k: tm[k] for k in (
+            "call_ms", "host_ms", "kernel_ms", "plain_ms", "bound_ms",
+            "bound_by")}
+    entries = []
+    for name in fns:
+        t = shapes[name]["serving"]
+        entries.append(dict(
+            name=name, route="cuda", source="gbrl_tpu_torch/csrc/predict.cu",
+            replaces=REPLACES[name], launches=launches[name],
+            max_abs_err=errs[name], ms=t["call_ms"], plain_ms=t["plain_ms"],
+            bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None,
+            call_ms=t["call_ms"], host_ms=t["host_ms"],
+            kernel_ms=t["kernel_ms"],
+            shapes={k: v for k, v in shapes[name].items() if k != "serving"}))
+    return entries
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1529,10 +1642,12 @@ def main() -> int:
     for policy, arrs in ens_arrs.items():
         X = observations(rng, arrs)
         X[-3:] = np.nan                                    # NaN goes left
-        scale = rng.uniform(0.01, 0.1, size=(CAPACITY, 1, O))
-        w = (arrs["leaf_values"] * scale).astype(np.float32)
         t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in
-             (X, arrs["feat"], arrs["thr"], arrs["is_split"], w)]
+             (X, arrs["feat"], arrs["thr"], arrs["is_split"],
+              arrs["leaf_values"])]
+        cd = torch.from_numpy(rng.uniform(0.01, 0.1, size=(CAPACITY, O))
+                              .astype(np.float32)).to(dev)
+        w = t[4] * cd[:, None, :]          # pre-scaled: the same f32 product
         names = (["weighted_leaf_sum", "oblivious_leaf_sum"]
                  if policy == "oblivious" else ["weighted_leaf_sum"])
         for n, nt in ((N, N_TREES), (1000, 0), (1000, 1), (1000, 129)):
@@ -1541,34 +1656,44 @@ def main() -> int:
             outs = {}
             for name in names:
                 fast, plain = kfn[name]
-                outs[name] = fast(*args_nt, DEPTH, ntd)
+                outs[name] = fast(*args_nt, DEPTH, ntd, cd)
+                again = fast(*args_nt, DEPTH, ntd, cd)
+                pre = fast(*args_nt[:4], w, DEPTH, ntd)
                 torch.cuda.synchronize()
+                assert torch.equal(outs[name], again), \
+                    f"{name}: two launches differ at N={n} n_trees={nt}"
+                assert torch.equal(outs[name], pre), \
+                    f"{name}: coefficient path != pre-scaled at n_trees={nt}"
                 err = check_close(f"{policy} {name} N={n} n_trees={nt}",
-                                  outs[name], plain(*args_nt, DEPTH, nt))
+                                  outs[name], plain(*args_nt, DEPTH, nt, cd))
                 if nt == 0:
                     assert torch.equal(outs[name],
                                        torch.zeros_like(outs[name]))
                 if n == N and nt == N_TREES:
                     max_err[name] = max(max_err.get(name, 0.0), err)
-                    kernel_args[(name, policy)] = (args_nt, ntd)
+                    kernel_args[(name, policy)] = tuple(args_nt) + (
+                        DEPTH, ntd, cd)
             if policy == "oblivious":
                 assert torch.equal(outs["oblivious_leaf_sum"],
                                    outs["weighted_leaf_sum"]), \
                     f"K5 != K4 bitwise at N={n} n_trees={nt}"
                 print(f"  K5 == K4 bitwise at N={n} n_trees={nt}")
+        print(f"  {policy}: the same bits on two launches and with the "
+              f"coefficients apart as pre-scaled, at every n_trees")
 
-    # wide and deep numeric ensembles go through ops.predict's dispatch to
-    # the kernels, held against the same call on CPU tensors (plain version)
+    # wide, deep and wide-output numeric ensembles go through ops.predict's
+    # dispatch to the kernels (one launch each), held against the same call
+    # on CPU tensors (plain version)
     for policy in ("greedy", "oblivious"):
         key = ("oblivious_leaf_sum" if policy == "oblivious"
                else "weighted_leaf_sum")
-        for f, depth in DISPATCH_SHAPES:
+        for f, depth, o in DISPATCH_SHAPES:
             arrs = synthetic_ensemble(rng, policy, f, depth,
-                                      DISPATCH_CAPACITY, DISPATCH_TREES)
-            cfg = TreeConfig(input_dim=f, output_dim=O, n_num_features=f,
+                                      DISPATCH_CAPACITY, DISPATCH_TREES, o)
+            cfg = TreeConfig(input_dim=f, output_dim=o, n_num_features=f,
                              max_depth=depth, grow_policy=policy)
             X = torch.from_numpy(observations(rng, arrs, N, f))
-            coeff = torch.from_numpy((rng.normal(size=(DISPATCH_CAPACITY, O))
+            coeff = torch.from_numpy((rng.normal(size=(DISPATCH_CAPACITY, o))
                                       * (np.arange(DISPATCH_CAPACITY)
                                          < DISPATCH_TREES)[:, None])
                                      .astype(np.float32))
@@ -1577,11 +1702,15 @@ def main() -> int:
                                     X.to(dev), coeff.to(dev))
             torch.cuda.synchronize()
             assert K.launch_counts[key] == before + 1, \
-                f"{policy} F={f} depth={depth}: {key} not launched"
+                f"{policy} F={f} depth={depth} O={o}: {key} not launched once"
             want = weighted_leaf_sum(cfg, ensemble_from_numpy(arrs, "cpu"),
                                      X, coeff)
-            check_close(f"{policy} dispatch F={f} depth={depth} "
-                        f"n_trees={DISPATCH_TREES}", got, want.to(dev))
+            staged = K._predict_plan(N, f, DISPATCH_CAPACITY, depth, o,
+                                     policy == "oblivious").staged
+            check_close(f"{policy} dispatch F={f} depth={depth} O={o} "
+                        f"n_trees={DISPATCH_TREES} "
+                        f"({'staged' if staged else 'global'} route)",
+                        got, want.to(dev))
 
     # --------------------------------------------------------- 4 serving
     print("[4 serving]", flush=True)
@@ -1655,21 +1784,7 @@ def main() -> int:
         print(f"    cached     {host_ms(lambda: model(obs[0]), REQUESTS)}")
         print(f"    device obs {host_ms(lambda: model(obs_dev), REQUESTS)}")
         profile_requests(fresh_request)
-    kernels = []
-    for (name, policy), (kargs, ntd) in kernel_args.items():
-        if name == "weighted_leaf_sum" and policy == "oblivious":
-            continue                         # K4 is timed on greedy trees
-        fast, plain = kfn[name]
-        ms = cuda_ms(lambda: fast(*kargs, DEPTH, ntd), KERNEL_REPS)
-        plain_ms = cuda_ms(lambda: plain(*kargs, DEPTH, N_TREES), KERNEL_REPS)
-        bms, bound_by = bound_ms(name, N, N_TREES)
-        print(f"  {name} ({policy}): {ms:.5f} ms | plain {plain_ms:.5f} ms | "
-              f"bound {bms:.6f} ms ({bound_by})")
-        kernels.append(dict(
-            name=name, route="cuda", source="gbrl_tpu_torch/csrc/predict.cu",
-            replaces=REPLACES[name], launches=launches[name],
-            max_abs_err=max_err[name], ms=ms, plain_ms=plain_ms,
-            bound_ms=bms, bound_by=bound_by, library_ms=None))
+    kernels = phase_predict_times(rng, dev, kernel_args, launches, max_err)
 
     fit_args, fit_err = phase_fit_parity(rng, dev)
     fit_launches = phase_training(rng, dev)

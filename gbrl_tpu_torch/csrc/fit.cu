@@ -95,8 +95,13 @@
 //   Each block stages the node totals of its own nodes (K more rows per
 //   node, in the same flight of loads and the same parallel scan); taking
 //   them from rank 0 instead would put a cluster barrier between every
-//   block's scan and its scoring.  The plan (S, fpb, g, nc, keep, fuse)
-//   comes from the shapes alone (ops/kernels.py _score_plan).
+//   block's scan and its scoring.  Past the shared-memory budget even at one
+//   (node, feature) a group (wide O: one row set is (O + 1) x 257 floats at
+//   256 bins) the staged rows live in the block's slice of global scratch
+//   (glob), read and written by the same code and ordered by the same block
+//   barriers: the same sequential f32 chains, so the same bits.  The plan
+//   (S, fpb, g, nc, keep, fuse, glob) comes from the shapes alone
+//   (ops/kernels.py _score_plan).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -Xcompiler -fPIC
 // (no fast-math: IEEE division and sqrtf).
@@ -321,7 +326,8 @@ level_hist_kernel(const int32_t* __restrict__ Xb,
 
 // ------------------------------------------------------------------- K3
 // Shared memory of one K3 block, in floats (ops/kernels.py _score_words):
-// the staged rows [rows][NBp], the node totals and parents [NS][O + 2], the
+// the staged rows [rows][NBp] (unless `glob`: then they are the block's
+// slice of global scratch), the node totals and parents [NS][O + 2], the
 // candidate values (keep: the block's [fpb * B]; else only an oblivious
 // level staged in node chunks keeps its group's sums [g * B]), block scratch
 // [32] and the cluster exchange [4].
@@ -334,15 +340,16 @@ __host__ __device__ inline size_t k3_vals(int B, int NS, int fpb, int g,
 }
 __host__ __device__ inline size_t k3_smem_words(int NB, int K, int B, int NS,
                                                 int fpb, int g, int nc,
-                                                int keep, int fuse) {
-  return k3_rows(g, nc, K, fuse) * gbrl::odd_stride(NB) + (size_t)NS * (K + 1)
-         + k3_vals(B, NS, fpb, g, nc, keep) + 36;
+                                                int keep, int fuse,
+                                                int glob) {
+  return (glob ? 0 : k3_rows(g, nc, K, fuse) * gbrl::odd_stride(NB)) +
+         (size_t)NS * (K + 1) + k3_vals(B, NS, fpb, g, nc, keep) + 36;
 }
 
 // The shapes, flags and plan of one K3 launch (ops/kernels.py
 // _score_params), in this order.
 enum { Q_F, Q_NODES, Q_O, Q_B, Q_COSINE, Q_OBLIVIOUS, Q_ROOT, Q_S, Q_FPB, Q_G,
-       Q_NC, Q_KEEP, Q_FUSE, Q_SMEM, Q_COUNT };
+       Q_NC, Q_KEEP, Q_FUSE, Q_GLOBAL, Q_SMEM, Q_COUNT };
 
 struct K3Args {
   const float* hist;       // [F, n_nodes * K, NB]
@@ -350,9 +357,10 @@ struct K3Args {
   const float* feat_w;     // [F]
   float* out;              // [O + 4, n_nodes]: idx bits, best, count, parent,
                            // sums [O]
+  float* scratch;          // glob: [blocks][rows][NBp] staged rows
   int F, n_nodes, O, NB, B, cosine, oblivious, is_root;
   float min_data;
-  int fpb, g, nc, keep, fuse;   // the plan (ops/kernels.py _score_plan)
+  int fpb, g, nc, keep, fuse, glob;   // the plan (ops/kernels.py _score_plan)
 };
 
 // Stages rows [r0, r0 + n) of the list row(r) -> hist row into shared memory
@@ -379,8 +387,11 @@ level_score_kernel(const K3Args a) {
   const int node0 = a.oblivious ? 0 : (int)(blockIdx.x / S);
   const int fa = rank * a.fpb, fb = min(a.F, fa + a.fpb);
   const int rows_max = (int)k3_rows(a.g, a.nc, K, a.fuse);
-  float* stage = sm;                                  // [rows_max][NBp]
-  float* tot = stage + (size_t)rows_max * NBp;        // [NS][K + 1]
+  // [rows_max][NBp]: in shared memory, or past its budget (wide O) in the
+  // block's slice of global scratch, ordered by the same block barriers
+  float* stage = a.glob ? a.scratch + (size_t)blockIdx.x * rows_max * NBp
+                        : sm;
+  float* tot = a.glob ? sm : stage + (size_t)rows_max * NBp;   // [NS][K + 1]
   float* sc = tot + (size_t)NS * (K + 1);             // candidate values
   float* shf = sc + k3_vals(B, NS, a.fpb, a.g, a.nc, a.keep);
   int* shi = reinterpret_cast<int*>(shf);             // (shares shf)
@@ -687,13 +698,16 @@ int gbrl_k3_max_clusters(int S, int bytes) {
 // features per block, staged g features x nc nodes at a time; keep: every
 // candidate value of the block held in shared memory, else a second pass
 // recomputes them; fuse: the node totals staged with the first group, else
-// a first pass).  min_data <= 0 disables the min-data mask.
+// a first pass; glob: the staged rows live in `scratch`, [blocks][rows of
+// one (node, feature)'s O + 1 columns][NBp], else in shared memory).
+// min_data <= 0 disables the min-data mask.
 int gbrl_k3_level_score(const float* hist, const uint8_t* blocked,
-                        const float* feat_w, float* out, const int* q,
-                        float min_data, void* stream) {
-  const K3Args a{hist, blocked, feat_w, out, q[Q_F], q[Q_NODES], q[Q_O],
-                 q[Q_B] + 1, q[Q_B], q[Q_COSINE], q[Q_OBLIVIOUS], q[Q_ROOT],
-                 min_data, q[Q_FPB], q[Q_G], q[Q_NC], q[Q_KEEP], q[Q_FUSE]};
+                        const float* feat_w, float* out, float* scratch,
+                        const int* q, float min_data, void* stream) {
+  const K3Args a{hist, blocked, feat_w, out, scratch, q[Q_F], q[Q_NODES],
+                 q[Q_O], q[Q_B] + 1, q[Q_B], q[Q_COSINE], q[Q_OBLIVIOUS],
+                 q[Q_ROOT], min_data, q[Q_FPB], q[Q_G], q[Q_NC], q[Q_KEEP],
+                 q[Q_FUSE], q[Q_GLOBAL]};
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg =
       k3_config(a.oblivious ? 1 : a.n_nodes, q[Q_S], (size_t)q[Q_SMEM], &attr,

@@ -66,6 +66,12 @@ class BaseLearner(ABC):
     def get_device(self) -> str:
         return self.device
 
+    def set_device(self, device) -> None:
+        """Serve and train on ``device`` from now on ("cpu", "cuda" or
+        "cuda:i"); asking for CUDA without a card raises."""
+        self.torch_device = resolve_device(device)
+        self.device = str(device)
+
     def copy(self):
         return self.__copy__()
 

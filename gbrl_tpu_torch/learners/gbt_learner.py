@@ -5,9 +5,9 @@ Owns one ``Ensemble`` of torch tensors on ``device``, fits trees into it
 (``step``: one boosting iteration on per-sample gradients; ``fit``: the
 supervised loop; ``distil``) and serves predictions from it.  Checkpoints
 are the JAX package's ``.gbrl_model`` format (npz with a JSON ``__meta__``),
-so a checkpoint crosses between the two packages in both directions.  SHAP
-and export come with later slices (ROADMAP.md) and raise
-``NotImplementedError`` here.
+so a checkpoint crosses between the two packages in both directions.  SHAP,
+tree printing, export and the reference-format writer come with later
+slices (ROADMAP.md) and raise ``NotImplementedError`` here.
 """
 from __future__ import annotations
 
@@ -467,6 +467,25 @@ class GBTLearner(BaseLearner):
         data.update(bias=self.get_bias(), n_trees=n)
         return data
 
+    def set_device(self, device) -> None:
+        """Moves the ensemble's tensors to ``device`` ("cpu" / "cuda"); the
+        cached prediction is dropped.  Asking for CUDA without a card
+        raises."""
+        super().set_device(device)
+        if self.ens is not None:
+            self.ens = self.ens.replace(**{
+                f: getattr(self.ens, f).to(self.torch_device)
+                for f in FIELDS})
+        self._pred_cache = None
+
+    def print_ensemble_metadata(self) -> None:
+        c = self.cfg
+        print(f"GBRL-TPU ensemble: trees={self.get_num_trees()} "
+              f"output_dim={c.output_dim} max_depth={c.max_depth} "
+              f"n_bins={c.n_bins} policy={c.grow_policy} "
+              f"score={c.split_score_func} generator={c.generator_type} "
+              f"cv={c.use_control_variates}")
+
     def print_tree(self, tree_idx: int) -> None:
         raise not_ported("print_tree", "the utils slice")
 
@@ -483,6 +502,9 @@ class GBTLearner(BaseLearner):
                export_format: str = "float",
                export_type: str = "full") -> None:
         raise not_ported("export", "the utils slice")
+
+    def save_reference_format(self, filename: str) -> None:
+        raise not_ported("save_reference_format", "the utils slice")
 
     # ------------------------------------------------------------- checkpoint
     def save(self, filename: str) -> None:

@@ -135,6 +135,40 @@ class MultiGBTLearner(BaseLearner):
     def get_device(self, model_idx: Optional[int] = None):
         return self._fan("get_device", model_idx)
 
+    def set_device(self, device, model_idx: Optional[int] = None) -> None:
+        super().set_device(device)
+        for i in self._sel(model_idx):
+            self.learners[i].set_device(device)
+
+    def print_tree(self, tree_idx: int,
+                   model_idx: Optional[int] = None) -> None:
+        self._fan("print_tree", model_idx, tree_idx)
+
+    def plot_tree(self, tree_idx: int, filename: str,
+                  model_idx: Optional[int] = None) -> None:
+        for i in self._sel(model_idx):
+            self.learners[i].plot_tree(tree_idx,
+                                       f"{filename}_{self.custom_names[i]}")
+
+    def print_ensemble_metadata(self) -> None:
+        for lr in self.learners:
+            lr.print_ensemble_metadata()
+
+    def tree_shap(self, tree_idx: int, features,
+                  model_idx: Optional[int] = None):
+        return self._fan("tree_shap", model_idx, tree_idx, features)
+
+    def shap(self, features, model_idx: Optional[int] = None):
+        return self._fan("shap", model_idx, features)
+
+    def distil(self, obs, targets, params: Dict, verbose: int = 0,
+               model_idx: Optional[int] = None):
+        out = []
+        for i in self._sel(model_idx):
+            t = targets[i] if isinstance(targets, (list, tuple)) else targets
+            out.append(self.learners[i].distil(obs, t, params, verbose))
+        return out[0] if len(out) == 1 else tuple(out)
+
     # ------------------------------------------------------------- checkpoint
     def save(self, filename: str) -> None:
         meta = dict(n_learners=self.n_learners, custom_names=self.custom_names)

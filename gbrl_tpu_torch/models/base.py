@@ -61,8 +61,23 @@ class BaseGBT(ABC):
     def get_grads(self):
         return self.grads
 
+    def set_device(self, device) -> None:
+        self.learner.set_device(device)
+
     def get_device(self):
         return self.learner.get_device()
+
+    def tree_shap(self, tree_idx: int, features: NumericalData, *a, **k):
+        return self.learner.tree_shap(tree_idx, features, *a, **k)
+
+    def shap(self, features: NumericalData, *a, **k):
+        return self.learner.shap(features, *a, **k)
+
+    def print_tree(self, tree_idx: int, *a, **k) -> None:
+        self.learner.print_tree(tree_idx, *a, **k)
+
+    def plot_tree(self, tree_idx: int, filename: str, *a, **k) -> None:
+        self.learner.plot_tree(tree_idx, filename, *a, **k)
 
     @abstractmethod
     def __call__(self, *args, **kwargs): ...

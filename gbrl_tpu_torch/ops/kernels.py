@@ -13,7 +13,8 @@ K1-K3 are the fit path (``csrc/fit.cu``): bucket ids, one level's gradient
 histogram, one level's split choice. K6 (``csrc/tree.cu``) fits a whole
 numeric tree of depth <= 4 in one launch of a thread-block cluster. K4 and
 K5 compute ``sum_{t < n_trees} w[t, leaf(n, t), :] -> [N, O]`` with ``w =
-leaf_values * coeff`` already folded (``csrc/predict.cu``). The CUDA sources
+leaf_values * coeff``, the product taken as the trees are staged
+(``csrc/predict.cu``). The CUDA sources
 are compiled at first use with ``nvcc``, one process per source started
 together, and linked into one shared library with a C interface, keyed by a
 hash of the sources and flags, and loaded with ``ctypes``. The library goes
@@ -52,11 +53,32 @@ LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 LIB_NAME = "libgbrl_kernels.so"
 BUILD_NAME = "gbrl_tpu_torch_kernels"
 
-# trees staged per shared-memory chunk: at most this many, fewer when the
-# block's shared memory would exceed SMEM_BUDGET (deep trees / wide F), down
-# to the warp group (8) within the device's opt-in shared-memory maximum
-MAX_CHUNK = 128
-SMEM_BUDGET = 100 * 1024
+# K4/K5's launch plan (predict.cu): a block takes at most PREDICT_MAX_TILE
+# samples (one per thread), at least PREDICT_MIN_TILE; up to
+# PREDICT_SPLIT_N samples (and PREDICT_OREG columns), a block instead takes
+# PREDICT_MIN_TILE samples and splits its trees over PREDICT_GROUPS warp
+# groups, with no cluster; past it, clusters of up to
+# PREDICT_MAX_CLUSTER blocks (past the portable 8) split the trees, chunk c of
+# PREDICT_CHUNK trees going to rank c % S (predict.cu CHUNK); the cluster
+# grows while the grid stays within PREDICT_TARGET_BLOCKS blocks and each
+# rank keeps two chunks of the capacity.  A block stages its trees in two
+# buffers of at most PREDICT_STAGE trees, at least PREDICT_GROUP, within
+# PREDICT_SMEM_BUDGET bytes; PREDICT_PREFETCH staged units a thread per round
+# (predict.cu PF); up to PREDICT_OREG output columns summed in registers
+# (OREG); depths up to PREDICT_MAX_STAGED_DEPTH have staged instances
+PREDICT_MAX_TILE = 256
+PREDICT_MIN_TILE = 32
+PREDICT_SPLIT_N = 2048
+PREDICT_GROUPS = 8
+PREDICT_MAX_CLUSTER = 16
+PREDICT_CHUNK = 8
+PREDICT_TARGET_BLOCKS = 256
+PREDICT_STAGE = 32
+PREDICT_GROUP = 8
+PREDICT_SMEM_BUDGET = 96 * 1024
+PREDICT_PREFETCH = 4
+PREDICT_OREG = 8
+PREDICT_MAX_STAGED_DEPTH = 8
 PLAIN_TREE_CHUNK = 512
 
 launch_counts = {"bucketize": 0, "level_histogram": 0, "level_score": 0,
@@ -75,11 +97,13 @@ def _live(n_trees: Union[int, torch.Tensor], capacity: int) -> int:
 
 
 def _leaf_sum_plain(leaf_fn: Callable, X: torch.Tensor, w: torch.Tensor,
-                    n_trees) -> torch.Tensor:
+                    n_trees, coeff=None) -> torch.Tensor:
     """Shared summation of both plain versions: trees in chunks of
-    PLAIN_TREE_CHUNK, ``leaf_fn(t0, t1) -> [N, t1 - t0]`` leaf indices.  Only
-    the leaf indices differ between K4 and K5, so on an oblivious ensemble
-    the two plain versions give the same bits."""
+    PLAIN_TREE_CHUNK, ``leaf_fn(t0, t1) -> [N, t1 - t0]`` leaf indices; a
+    chunk's weights are ``w[t0:t1] * coeff[t0:t1, None, :]`` when ``coeff``
+    is given (the elementwise product of a pre-scaled ``w``, so the same
+    bits).  Only the leaf indices differ between K4 and K5, so on an
+    oblivious ensemble the two plain versions give the same bits."""
     N = X.shape[0]
     O = w.shape[-1]
     nt = _live(n_trees, w.shape[0])
@@ -87,17 +111,19 @@ def _leaf_sum_plain(leaf_fn: Callable, X: torch.Tensor, w: torch.Tensor,
     for t0 in range(0, nt, PLAIN_TREE_CHUNK):
         t1 = min(nt, t0 + PLAIN_TREE_CHUNK)
         leaf = leaf_fn(t0, t1)                                  # [N, C]
-        trees = torch.arange(t0, t1, device=X.device)[None, :]
-        acc = acc + w[trees, leaf].sum(dim=1)                   # [N, C, O]
+        wc = w[t0:t1] if coeff is None else w[t0:t1] * coeff[t0:t1, None, :]
+        trees = torch.arange(t1 - t0, device=X.device)[None, :]
+        acc = acc + wc[trees, leaf].sum(dim=1)                  # [N, C, O]
     return acc
 
 
 def weighted_leaf_sum_plain(X: torch.Tensor, feat: torch.Tensor,
                             thr: torch.Tensor, is_split: torch.Tensor,
                             w: torch.Tensor, max_depth: int,
-                            n_trees) -> torch.Tensor:
+                            n_trees, coeff=None) -> torch.Tensor:
     """K4's function in plain torch: direct heap walk ``p = 2p + 1 + go``
-    with ``go = is_split & (x[max(feat, 0)] > thr)``."""
+    with ``go = is_split & (x[max(feat, 0)] > thr)``; ``w`` the leaf values,
+    scaled by ``coeff`` [T, O] when it is given."""
     IN = (1 << max_depth) - 1
 
     def leaf_fn(t0, t1):
@@ -114,15 +140,16 @@ def weighted_leaf_sum_plain(X: torch.Tensor, feat: torch.Tensor,
             p = 2 * p + 1 + go.long()
         return p - IN
 
-    return _leaf_sum_plain(leaf_fn, X, w, n_trees)
+    return _leaf_sum_plain(leaf_fn, X, w, n_trees, coeff)
 
 
 def oblivious_leaf_sum_plain(X: torch.Tensor, feat: torch.Tensor,
                              thr: torch.Tensor, is_split: torch.Tensor,
                              w: torch.Tensor, max_depth: int,
-                             n_trees) -> torch.Tensor:
+                             n_trees, coeff=None) -> torch.Tensor:
     """K5's function in plain torch: one (feat, thr, is_split) per level,
-    read at the level-lead slot ``2^d - 1``, packed into a leaf bit index."""
+    read at the level-lead slot ``2^d - 1``, packed into a leaf bit index
+    (arguments as ``weighted_leaf_sum_plain``)."""
     lead = [(1 << d) - 1 for d in range(max_depth)]
 
     def leaf_fn(t0, t1):
@@ -134,7 +161,7 @@ def oblivious_leaf_sum_plain(X: torch.Tensor, feat: torch.Tensor,
             leaf = 2 * leaf + go.long()
         return leaf
 
-    return _leaf_sum_plain(leaf_fn, X, w, n_trees)
+    return _leaf_sum_plain(leaf_fn, X, w, n_trees, coeff)
 
 
 # ------------------------------------------------------------------- build
@@ -213,12 +240,12 @@ def _library() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for name in ("gbrl_k4_leaf_sum", "gbrl_k5_leaf_sum"):
         fn = getattr(lib, name)
-        fn.argtypes = [ptr] * 7 + [i32] * 6 + [ptr]
+        fn.argtypes = [ptr] * 11
         fn.restype = i32
-    lib.gbrl_leaf_sum_smem_bytes.argtypes = [i32] * 5
-    lib.gbrl_leaf_sum_smem_bytes.restype = ctypes.c_size_t
-    lib.gbrl_leaf_sum_group.argtypes = []
-    lib.gbrl_leaf_sum_group.restype = i32
+    lib.gbrl_predict_prepare.argtypes = [i32]
+    lib.gbrl_predict_prepare.restype = i32
+    lib.gbrl_predict_max_clusters.argtypes = [i32, ptr]
+    lib.gbrl_predict_max_clusters.restype = i32
     lib.gbrl_max_smem_optin.argtypes = [i32]
     lib.gbrl_max_smem_optin.restype = i32
     lib.gbrl_cuda_error_string.argtypes = [i32]
@@ -227,7 +254,7 @@ def _library() -> ctypes.CDLL:
     lib.gbrl_k1_bucketize.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
     lib.gbrl_k2_level_histogram.argtypes = [ptr] * 3 + [i32] * 9 + [ptr]
     lib.gbrl_k2_max_clusters.argtypes = [i32] * 4
-    lib.gbrl_k3_level_score.argtypes = [ptr] * 5 + [ctypes.c_float, ptr]
+    lib.gbrl_k3_level_score.argtypes = [ptr] * 6 + [ctypes.c_float, ptr]
     lib.gbrl_k3_max_clusters.argtypes = [i32] * 2
     for name in ("gbrl_fit_prepare", "gbrl_k1_bucketize",
                  "gbrl_k2_level_histogram", "gbrl_k2_max_clusters",
@@ -243,20 +270,23 @@ def _library() -> ctypes.CDLL:
 
 
 # ---------------------------------------------------------------- wrappers
-def _check(X, feat, thr, is_split, w, max_depth, n_trees) -> None:
+def _check(X, feat, thr, is_split, w, max_depth, n_trees, coeff) -> None:
     dev = X.device
     named = dict(X=X, feat=feat, thr=thr, is_split=is_split, w=w,
                  n_trees=n_trees)
+    if coeff is not None:
+        named["coeff"] = coeff
     for name, t in named.items():
         if not isinstance(t, torch.Tensor) or t.device != dev:
             raise ValueError(f"{name} must be a tensor on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     want = dict(X=torch.float32, feat=torch.int32, thr=torch.float32,
-                is_split=torch.bool, w=torch.float32, n_trees=torch.int32)
-    for name, dt in want.items():
-        if named[name].dtype != dt:
-            raise ValueError(f"{name} must be {dt}, got {named[name].dtype}")
+                is_split=torch.bool, w=torch.float32, n_trees=torch.int32,
+                coeff=torch.float32)
+    for name, t in named.items():
+        if t.dtype != want[name]:
+            raise ValueError(f"{name} must be {want[name]}, got {t.dtype}")
     IN, L = (1 << max_depth) - 1, 1 << max_depth
     T = feat.shape[0]
     if X.dim() != 2 or X.shape[1] < 1:
@@ -267,42 +297,176 @@ def _check(X, feat, thr, is_split, w, max_depth, n_trees) -> None:
                              f"{tuple(t.shape)}")
     if w.dim() != 3 or tuple(w.shape[:2]) != (T, L):
         raise ValueError(f"w must be [{T}, {L}, O], got {tuple(w.shape)}")
+    if coeff is not None and tuple(coeff.shape) != (T, w.shape[2]):
+        raise ValueError(f"coeff must be [{T}, {w.shape[2]}], got "
+                         f"{tuple(coeff.shape)}")
     if n_trees.numel() != 1:
         raise ValueError("n_trees must hold one int32")
 
 
-def _chunk(lib, device: torch.device, F: int, K: int, max_depth: int,
-           O: int) -> int:
-    """Largest power-of-two chunk <= MAX_CHUNK (and >= the warp group) whose
-    shared memory fits SMEM_BUDGET; the warp group alone when only the
-    device's opt-in maximum fits it.  Raises when even that does not fit:
-    the kernel cannot take such a shape, and a CUDA tensor never falls back
-    to the plain version."""
-    group = lib.gbrl_leaf_sum_group()
-    C = MAX_CHUNK
-    while C > group and lib.gbrl_leaf_sum_smem_bytes(F, C, K, max_depth,
-                                                      O) > SMEM_BUDGET:
-        C //= 2
-    _smem_fits(device, lib.gbrl_leaf_sum_smem_bytes(F, C, K, max_depth, O),
-               f"the predict kernel at F={F}, depth={max_depth}, O={O} "
-               f"(chunk of {C} trees)")
-    return C
+class PredictPlan(NamedTuple):
+    """K4/K5's launch plan: ``grid`` blocks of ``tile`` samples x ``groups``
+    warp groups in clusters of ``S``, chunk c of ``chunk`` trees going to
+    rank c % S, each rank walking its chunks in order, group g its
+    positions q with q % groups == g; ``staged``: X's
+    tile ([F][tile] at ``x_off``) and the rank's trees (two buffers of ``sb``
+    trees, ``buf`` bytes each, at ``ring_off``) in shared memory, else read
+    from global memory; the block's [O][tile] partial sums at ``red_off`` or,
+    with ``red_global``, in ``scratch`` floats of global memory; ``smem``
+    bytes per block (predict.cu)."""
+    S: int
+    groups: int
+    chunk: int
+    tile: int
+    staged: int
+    sb: int
+    red_global: int
+    x_off: int
+    ring_off: int
+    buf: int
+    red_off: int
+    smem: int
+    grid: int
+    scratch: int
 
 
-def _launch(fn_name: str, count_key: str, K: int, X, feat, thr, is_split, w,
-            max_depth: int, n_trees) -> torch.Tensor:
-    _check(X, feat, thr, is_split, w, max_depth, n_trees)
+def _predict_groups(N: int, O: int) -> int:
+    """Warp groups a block splits its trees over: PREDICT_GROUPS up to
+    PREDICT_SPLIT_N samples and PREDICT_OREG columns (blocks of
+    PREDICT_MIN_TILE samples: a small request or A2C's 1024 rows fills
+    blocks without a cluster's barriers), else 1."""
+    return (PREDICT_GROUPS if N <= PREDICT_SPLIT_N and O <= PREDICT_OREG
+            else 1)
+
+
+def _predict_ranks(N: int, T_cap: int, groups: int = 1) -> int:
+    """The cluster size, from N and the capacity alone (1 with warp
+    groups): it doubles while the grid at the largest tile stays within
+    PREDICT_TARGET_BLOCKS and each rank keeps at least two chunks of the
+    capacity.  S, the groups and the chunk fix the order of every add, so
+    K4 and K5 (and every route) share them."""
+    if groups > 1:
+        return 1
+    tiles = -(-N // PREDICT_MAX_TILE)
+    chunks = -(-T_cap // PREDICT_CHUNK)
+    S = 1
+    while (S < PREDICT_MAX_CLUSTER and 2 * S * tiles <= PREDICT_TARGET_BLOCKS
+           and chunks >= 4 * S):
+        S *= 2
+    return S
+
+
+def _predict_layout(F: int, O: int, K: int, LO: int, tile: int, sb: int,
+                    red: int):
+    """(x_off, ring_off, buf, red_off, smem) in bytes: X's tile, two stage
+    buffers of ``sb`` trees (K packed nodes of 8 bytes, LO leaf values), the
+    partial sums of ``red`` groups ([red][O][tile]; 0: none); 16-byte
+    aligned regions (sb = 0: nothing staged)."""
+    x = -(-4 * F * tile // 16) * 16 if sb else 0
+    buf = -(-sb * (8 * K + 4 * LO) // 16) * 16
+    red_off = x + 2 * buf
+    return 0, x, buf, red_off, red_off + 4 * O * tile * red
+
+
+@functools.lru_cache(maxsize=256)
+def _predict_plan(N: int, F: int, T_cap: int, D: int, O: int,
+                  oblivious: bool) -> PredictPlan:
+    """K4/K5's launch plan from the shapes alone: the ranks
+    (``_predict_ranks``); then the largest tile (halving down to
+    PREDICT_MIN_TILE) whose block holds X's tile and two buffers of a group
+    (PREDICT_GROUP trees) within PREDICT_SMEM_BUDGET, with as many trees a
+    buffer (up to PREDICT_STAGE) as a prefetch round (with warp groups: as
+    the budget allows, so few trees take few stages) and the budget allow;
+    where no tile holds a group (or past PREDICT_MAX_STAGED_DEPTH) the
+    global route, its partial sums in global scratch past the budget."""
+    K = D if oblivious else (1 << D) - 1
+    LO = (1 << D) * O
+    G = _predict_groups(N, O)
+    S = _predict_ranks(N, T_cap, G)
+    top = (PREDICT_MIN_TILE if G > 1 else
+           min(PREDICT_MAX_TILE, max(PREDICT_MIN_TILE, -(-N // 32) * 32)))
+    red = G if G > 1 else int(S > 1 or O > PREDICT_OREG)
+
+    def plan(tile, sb, red_global):
+        lay = _predict_layout(F, O, K, LO, tile, sb,
+                              0 if red_global else red)
+        grid = -(-N // tile) * S
+        return PredictPlan(S, G, PREDICT_CHUNK, tile, int(sb > 0), sb,
+                           int(red_global), *lay, grid,
+                           grid * O * tile if red_global else 0)
+
+    tile = top
+    while D <= PREDICT_MAX_STAGED_DEPTH and tile >= PREDICT_MIN_TILE:
+        sb = PREDICT_STAGE
+        while sb > PREDICT_GROUP and (
+                (G == 1 and sb * (K + LO) > PREDICT_PREFETCH * tile)
+                or plan(tile, sb, 0).smem > PREDICT_SMEM_BUDGET):
+            sb //= 2
+        p = plan(tile, sb, 0)
+        if p.smem <= PREDICT_SMEM_BUDGET:
+            return p
+        tile //= 2
+    return plan(top, 0, int(red and 4 * O * top > PREDICT_SMEM_BUDGET))
+
+
+@functools.lru_cache(maxsize=None)
+def _predict_ready(index: int) -> None:
+    """Once per device: every predict instance may use the device's opt-in
+    shared memory and clusters past the portable size."""
     lib = _library()
+    with torch.cuda.device(index):
+        rc = lib.gbrl_predict_prepare(_smem_limit(index))
+    if rc != 0:
+        raise RuntimeError(f"gbrl_predict_prepare failed: CUDA error {rc} "
+                           f"({lib.gbrl_cuda_error_string(rc).decode()})")
+
+
+@functools.lru_cache(maxsize=256)
+def _predict_params(index: int, N: int, F: int, T_cap: int, D: int, O: int,
+                    oblivious: bool):
+    """Once per device and shape: the plan, the device readied and the
+    cluster checked with the device (raises when it refuses it); returns
+    (plan, predict.cu's int array P_N ... P_SMEM)."""
+    plan = _predict_plan(N, F, T_cap, D, O, oblivious)
+    if plan.grid >= 1 << 31:
+        raise ValueError(f"predict: grid of {plan.grid} blocks too large")
+    _smem_fits(torch.device("cuda", index), plan.smem, "predict")
+    _predict_ready(index)
+    vals = [N, F, T_cap, D, O, plan.S, plan.groups, plan.chunk, plan.tile,
+            plan.sb,
+            1 - plan.staged, plan.red_global, plan.x_off, plan.ring_off,
+            plan.buf, plan.red_off, plan.smem]
+    params = (ctypes.c_int * len(vals))(*vals)
+    with torch.cuda.device(index):
+        n = _library().gbrl_predict_max_clusters(int(oblivious),
+                                                 ctypes.addressof(params))
+    if n < 1:
+        raise RuntimeError(f"predict: the device cannot run a cluster of "
+                           f"{plan.S} blocks of {plan.tile * plan.groups} "
+                           f"threads with "
+                           f"{plan.smem} B of shared memory each (query "
+                           f"returned {n})")
+    return plan, params
+
+
+def _launch(fn_name: str, count_key: str, oblivious: bool, X, feat, thr,
+            is_split, w, max_depth: int, n_trees, coeff) -> torch.Tensor:
+    _check(X, feat, thr, is_split, w, max_depth, n_trees, coeff)
     N, F = X.shape
     O = w.shape[-1]
-    out = torch.empty((N, O), dtype=torch.float32, device=X.device)
+    dev = X.device
+    out = torch.empty((N, O), dtype=torch.float32, device=dev)
     if N == 0 or O == 0:
         return out
-    C = _chunk(lib, X.device, F, K, max_depth, O)
-    _call(lib, fn_name, X.device, X.data_ptr(), feat.data_ptr(),
+    plan, params = _predict_params(_index(dev), N, F, feat.shape[0],
+                                   max_depth, O, oblivious)
+    scratch = (torch.empty(plan.scratch, dtype=torch.float32, device=dev)
+               if plan.red_global else None)
+    _call(_library(), fn_name, dev, X.data_ptr(), feat.data_ptr(),
           thr.data_ptr(), is_split.data_ptr(), w.data_ptr(),
-          n_trees.data_ptr(), out.data_ptr(), N, F, feat.shape[0], max_depth,
-          O, C)
+          None if coeff is None else coeff.data_ptr(), n_trees.data_ptr(),
+          out.data_ptr(), None if scratch is None else scratch.data_ptr(),
+          ctypes.addressof(params))
     launch_counts[count_key] += 1
     return out
 
@@ -310,32 +474,36 @@ def _launch(fn_name: str, count_key: str, K: int, X, feat, thr, is_split, w,
 def weighted_leaf_sum_cuda(X: torch.Tensor, feat: torch.Tensor,
                            thr: torch.Tensor, is_split: torch.Tensor,
                            w: torch.Tensor, max_depth: int,
-                           n_trees: torch.Tensor) -> torch.Tensor:
+                           n_trees: torch.Tensor,
+                           coeff: torch.Tensor = None) -> torch.Tensor:
     """K4: general (greedy) heap-walk ensemble sum -> [N, O] f32.
 
     X [N, F] f32; feat [T, 2^D-1] int32; thr [T, 2^D-1] f32; is_split
-    [T, 2^D-1] bool; w [T, 2^D, O] f32; n_trees int32 tensor (on the same
-    device; trees at or beyond it contribute nothing)."""
+    [T, 2^D-1] bool; w [T, 2^D, O] f32 leaf values; n_trees int32 tensor
+    (on the same device; trees at or beyond it contribute nothing); coeff
+    [T, O] f32 scales each tree's leaf values (one rounded f32 product, as
+    ``w * coeff[:, None, :]``), None when ``w`` is already scaled.  One
+    launch for any shape."""
     if X.device.type == "cpu":
         return weighted_leaf_sum_plain(X, feat, thr, is_split, w, max_depth,
-                                       n_trees)
-    return _launch("gbrl_k4_leaf_sum", "weighted_leaf_sum",
-                   (1 << max_depth) - 1, X, feat, thr, is_split, w,
-                   max_depth, n_trees)
+                                       n_trees, coeff)
+    return _launch("gbrl_k4_leaf_sum", "weighted_leaf_sum", False, X, feat,
+                   thr, is_split, w, max_depth, n_trees, coeff)
 
 
 def oblivious_leaf_sum_cuda(X: torch.Tensor, feat: torch.Tensor,
                             thr: torch.Tensor, is_split: torch.Tensor,
                             w: torch.Tensor, max_depth: int,
-                            n_trees: torch.Tensor) -> torch.Tensor:
+                            n_trees: torch.Tensor,
+                            coeff: torch.Tensor = None) -> torch.Tensor:
     """K5: oblivious-tree ensemble sum -> [N, O] f32 (same arguments as
     ``weighted_leaf_sum_cuda``); bit-identical to K4 on oblivious
     ensembles."""
     if X.device.type == "cpu":
         return oblivious_leaf_sum_plain(X, feat, thr, is_split, w, max_depth,
-                                        n_trees)
-    return _launch("gbrl_k5_leaf_sum", "oblivious_leaf_sum", max_depth, X,
-                   feat, thr, is_split, w, max_depth, n_trees)
+                                        n_trees, coeff)
+    return _launch("gbrl_k5_leaf_sum", "oblivious_leaf_sum", True, X, feat,
+                   thr, is_split, w, max_depth, n_trees, coeff)
 
 
 # ================================================================ fit path
@@ -698,24 +866,33 @@ class ScorePlan(NamedTuple):
     * fpb) and stages ``g`` features x ``nc`` nodes of histogram rows at a
     time; ``keep``: the block's candidate values stay in shared memory (else
     a second pass recomputes them); ``fuse``: the node totals are staged with
-    the first group (else a first pass); ``smem`` bytes per block (fit.cu
-    k3_smem_words)."""
+    the first group (else a first pass); ``glob``: the staged rows live in
+    global scratch (``scratch`` floats), not in shared memory; ``smem``
+    bytes per block (fit.cu k3_smem_words)."""
     S: int
     fpb: int
     g: int
     nc: int
     keep: int
     fuse: int
+    glob: int
+    scratch: int
     smem: int
 
 
+def _score_rows(K: int, g: int, nc: int, fuse: int) -> int:
+    """fit.cu k3_rows: the histogram rows a block stages at a time."""
+    return nc * g * K + (nc * K if fuse else 0)
+
+
 def _score_words(NB: int, K: int, B: int, NS: int, fpb: int, g: int, nc: int,
-                 keep: int, fuse: int) -> int:
-    """fit.cu k3_smem_words: staged rows at an odd stride, node totals and
-    parents, candidate values (all of the block's when ``keep``; else only
-    an oblivious level's group sums when its nodes come in chunks), block
-    scratch and the cluster exchange."""
-    rows = nc * g * K + (nc * K if fuse else 0)
+                 keep: int, fuse: int, glob: int = 0) -> int:
+    """fit.cu k3_smem_words: staged rows at an odd stride (unless ``glob``:
+    then in global scratch), node totals and parents, candidate values (all
+    of the block's when ``keep``; else only an oblivious level's group sums
+    when its nodes come in chunks), block scratch and the cluster
+    exchange."""
+    rows = 0 if glob else _score_rows(K, g, nc, fuse)
     vals = fpb * B if keep else g * B if nc < NS else 0
     return rows * (NB | 1) + NS * (K + 1) + vals + 36
 
@@ -727,10 +904,11 @@ def _score_plan(F: int, n_nodes: int, O: int, n_bins: int,
     to SCORE_MAX_CLUSTER blocks; then the first of (keep, fuse), (keep, no
     fuse), (no keep, fuse), (no keep, no fuse) whose staging fits
     SCORE_SMEM_BUDGET once nodes per chunk and then features per group are
-    halved as needed; the smallest plan where none fits (the wrapper then
-    checks it against the device's limit).  The result does not depend on
-    the plan: every candidate's arithmetic is fixed and max / min are
-    exact."""
+    halved as needed.  Where none fits (wide O), the staged rows go to
+    global scratch: one (node, feature) a group, the node totals in a first
+    pass, the block's candidate values kept in shared memory where they
+    fit.  The result does not depend on the plan: every candidate's
+    arithmetic is fixed and max / min are exact."""
     K, NB, B = O + 1, n_bins + 1, n_bins
     S = min(SCORE_MAX_CLUSTER, F)
     fpb = -(-F // S)
@@ -746,8 +924,13 @@ def _score_plan(F: int, n_nodes: int, O: int, n_bins: int,
         while 4 * words() > SCORE_SMEM_BUDGET and g > 1:
             g = -(-g // 2)
         if 4 * words() <= SCORE_SMEM_BUDGET:
-            break
-    return ScorePlan(S, fpb, g, nc, keep, fuse, 4 * words())
+            return ScorePlan(S, fpb, g, nc, keep, fuse, 0, 0, 4 * words())
+    units = 1 if oblivious else n_nodes          # clusters: fit.cu k3_config
+    keep = int(4 * _score_words(NB, K, B, NS, fpb, 1, 1, 1, 0, 1)
+               <= SCORE_SMEM_BUDGET)
+    return ScorePlan(S, fpb, 1, 1, keep, 0, 1,
+                     units * S * _score_rows(K, 1, 1, 0) * (NB | 1),
+                     4 * _score_words(NB, K, B, NS, fpb, 1, 1, keep, 0, 1))
 
 
 @functools.lru_cache(maxsize=256)
@@ -755,8 +938,8 @@ def _score_params(index: int, F: int, n_nodes: int, O: int, n_bins: int,
                   cosine: bool, oblivious: bool, is_root: bool):
     """Once per device and shape: the plan, the device's shared-memory
     limit, the fit kernels readied and the cluster checked with the device
-    (raises when it refuses it); returns fit.cu's K3 int array (Q_F ...
-    Q_SMEM)."""
+    (raises when it refuses it); returns (plan, fit.cu's K3 int array (Q_F
+    ... Q_SMEM))."""
     plan = _score_plan(F, n_nodes, O, n_bins, oblivious)
     lib = _library()
     _smem_fits(torch.device("cuda", index), plan.smem, "level_score")
@@ -768,8 +951,8 @@ def _score_params(index: int, F: int, n_nodes: int, O: int, n_bins: int,
                            f"{plan.S} blocks with {plan.smem} B of shared "
                            f"memory each (query returned {n})")
     vals = [F, n_nodes, O, n_bins, int(cosine), int(oblivious), int(is_root),
-            *plan[:6], plan.smem]
-    return (ctypes.c_int * len(vals))(*vals)
+            *plan[:7], plan.smem]
+    return plan, (ctypes.c_int * len(vals))(*vals)
 
 
 def level_score_cuda(hist: torch.Tensor, blocked: torch.Tensor,
@@ -798,11 +981,15 @@ def level_score_cuda(hist: torch.Tensor, blocked: torch.Tensor,
     if n_nodes > 65535:
         raise ValueError(f"level_score takes at most 65535 nodes, got "
                          f"{n_nodes}")
-    params = _score_params(_index(dev), F, n_nodes, O, n_bins,
-                           score == "cosine", bool(oblivious), bool(is_root))
+    plan, params = _score_params(_index(dev), F, n_nodes, O, n_bins,
+                                 score == "cosine", bool(oblivious),
+                                 bool(is_root))
     out = torch.empty((O + 4, n_nodes), dtype=torch.float32, device=dev)
+    scratch = (torch.empty(plan.scratch, dtype=torch.float32, device=dev)
+               if plan.glob else None)
     _call(_library(), "gbrl_k3_level_score", dev, hist.data_ptr(),
           blocked.data_ptr(), feat_w.data_ptr(), out.data_ptr(),
+          None if scratch is None else scratch.data_ptr(),
           ctypes.addressof(params), float(min_data))
     launch_counts["level_score"] += 1
     return out[0].view(torch.int32), out[1], out[2], out[3], out[4:].t()

@@ -8,9 +8,10 @@ on a TPU; on a GPU a direct gather is the natural walk, so
 ``weighted_leaf_sum`` dispatches as ``gbrl_tpu/ops/predict.py:138-152``
 does: with no categorical columns it runs K4 (greedy) or K5 (oblivious)
 from ``ops/kernels.py`` — the kernel on a CUDA tensor, its plain version on
-a CPU tensor.  The JAX package's feature/depth guard there is the TPU's
-VMEM budget and has no counterpart here: the CUDA wrapper checks its own
-shared-memory ceiling and raises past it.  With
+a CPU tensor — with the leaf values and the coefficients, which the kernel
+multiplies as it stages the trees.  The JAX package's feature/depth guard
+there is the TPU's VMEM budget and has no counterpart here: past its
+shared-memory budget the kernel reads the trees from global memory.  With
 categorical columns the plain torch walk below runs on whatever device the
 tensors are on, as the JAX package runs XLA there.
 
@@ -92,11 +93,11 @@ def weighted_leaf_sum(cfg: TreeConfig, ens: Ensemble, Xn: torch.Tensor,
         if Xn.shape[1] == 0:        # no columns read as 0, as in the walk
             Xn = torch.zeros((Xn.shape[0], 1), dtype=torch.float32,
                              device=Xn.device)
-        w = ens.leaf_values * coeff[:, None, :]
         leaf_sum = (oblivious_leaf_sum_cuda if cfg.grow_policy == "oblivious"
                     else weighted_leaf_sum_cuda)
-        return leaf_sum(Xn.contiguous(), ens.feat, ens.thr, ens.is_split, w,
-                        cfg.max_depth, ens.n_trees)
+        return leaf_sum(Xn.contiguous(), ens.feat, ens.thr, ens.is_split,
+                        ens.leaf_values, cfg.max_depth, ens.n_trees,
+                        coeff.contiguous())
     T = ens.capacity
     C = _chunk_size(T, tree_chunk)
     acc = torch.zeros((Xn.shape[0], cfg.output_dim), dtype=torch.float32,

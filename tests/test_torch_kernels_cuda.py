@@ -1,4 +1,6 @@
-"""K1-K6 CUDA kernels against their plain versions, on the card.
+"""K1-K6 CUDA kernels against their plain versions, on the card (K4 / K5
+over a grid of N, F, O, depth and n_trees, past the old shared-memory
+ceiling, with the coefficients apart; K3 at wide O).
 
 Marked ``cuda``: every test takes the ``cuda_device`` fixture, which skips
 when PyTorch sees no CUDA device (CUDA kernels have no CPU mode).  Run on a
@@ -83,18 +85,70 @@ def test_wrapper_rejects_bad_inputs(cuda_device):
 
 
 def test_wrapper_raises_past_shared_memory_ceiling(cuda_device):
-    """K4 at depth 12 needs more shared memory than a block can hold even
-    at the smallest chunk: the wrapper raises, it does not fall back."""
-    D, T = 12, 8
-    IN, L = (1 << D) - 1, 1 << D
-    X = torch.zeros((4, 3), device=cuda_device)
-    feat = torch.zeros((T, IN), dtype=torch.int32, device=cuda_device)
-    thr = torch.zeros((T, IN), device=cuda_device)
-    spl = torch.zeros((T, IN), dtype=torch.bool, device=cuda_device)
-    w = torch.zeros((T, L, 3), device=cuda_device)
-    nt = torch.tensor(T, dtype=torch.int32, device=cuda_device)
-    with pytest.raises(ValueError, match="shared memory"):
-        K.weighted_leaf_sum_cuda(X, feat, thr, spl, w, D, nt)
+    """K4 at depth 12 (F = 16, O = 3), where a group of trees does not fit
+    a block's shared memory: the wrapper once raised here; now the plan
+    takes the global route and the kernel matches its plain version."""
+    D, T, n = 12, 8, 300
+    assert not K._predict_plan(n, 16, T, D, 3, False).staged
+    rng = np.random.default_rng(12)
+    for obl in (False, True):
+        feat, thr, spl, w = _ensemble(rng, obl, T, 16, 3, D)
+        X = rng.normal(size=(n, 16)).astype(np.float32)
+        X[-1] = np.nan
+        t = [torch.from_numpy(a).to(cuda_device) for a in (X, feat, thr, spl, w)]
+        nt = torch.tensor(T - 1, dtype=torch.int32, device=cuda_device)
+        got = K.weighted_leaf_sum_cuda(*t, D, nt)
+        want = K.weighted_leaf_sum_plain(*t, D, T - 1)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        assert err <= 1e-5 * want.abs().max().item() + 1e-6, err
+        if obl:
+            assert torch.equal(K.oblivious_leaf_sum_cuda(*t, D, nt), got)
+
+
+# the grid of the redesigned K4 / K5: every depth x O pair, N and F in turn
+PREDICT_GRID = [(n, f, o, d) for i, (d, o) in enumerate(
+    (d, o) for d in (1, 4, 8, 11) for o in (1, 3, 8, 11, 19))
+    for n, f in [((1, 1000, 4096)[i % 3], (1, 16, 300)[(i // 3) % 3])]]
+
+
+@pytest.mark.parametrize("n,F,O,D", PREDICT_GRID)
+def test_predict_grid_matches_plain(cuda_device, n, F, O, D):
+    """K4 (greedy) and K4 / K5 (oblivious) with the coefficients given
+    apart, at n_trees in {0, 1, 129, T_cap}: within RTOL * max|plain| +
+    ATOL of the plain version; the same bits on two launches; the same bits
+    as the pre-scaled path; K5 equal to K4 bit for bit; one launch each."""
+    T = 160
+    rng = np.random.default_rng(n + 31 * F + 7 * O + D)
+    for obl in (False, True):
+        feat, thr, spl, lv = _ensemble(rng, obl, T, F, O, D)
+        coeff = rng.uniform(-0.1, 0.1, (T, O)).astype(np.float32)
+        X = rng.normal(size=(n, F)).astype(np.float32)
+        X[: n // 4, max(feat[0, 0], 0)] = thr[0, 0]       # x == thr ties
+        X[-1] = np.nan
+        t = [torch.from_numpy(a).to(cuda_device)
+             for a in (X, feat, thr, spl, lv, coeff)]
+        w = t[4] * t[5][:, None, :]
+        for nt in (0, 1, 129, T):
+            ntd = torch.tensor(nt, dtype=torch.int32, device=cuda_device)
+            before = dict(K.launch_counts)
+            k4 = K.weighted_leaf_sum_cuda(*t[:5], D, ntd, t[5])
+            again = K.weighted_leaf_sum_cuda(*t[:5], D, ntd, t[5])
+            pre = K.weighted_leaf_sum_cuda(*t[:4], w, D, ntd)
+            want = K.weighted_leaf_sum_plain(*t[:5], D, nt, t[5])
+            torch.cuda.synchronize()
+            assert K.launch_counts["weighted_leaf_sum"] == \
+                before["weighted_leaf_sum"] + 3
+            assert torch.equal(k4, again) and torch.equal(k4, pre)
+            err = (k4 - want).abs().max().item()
+            assert err <= 1e-5 * want.abs().max().item() + 1e-6, (nt, err)
+            if nt == 0:
+                assert torch.equal(k4, torch.zeros_like(k4))
+            if obl:
+                k5 = K.oblivious_leaf_sum_cuda(*t[:5], D, ntd, t[5])
+                assert torch.equal(k5, k4), nt
+                assert torch.equal(
+                    K.oblivious_leaf_sum_cuda(*t[:4], w, D, ntd), k4)
 
 
 # ------------------------------------------------------------ fit kernels
@@ -294,6 +348,34 @@ def test_level_score_shapes(cuda_device, F, n_nodes, O, oblivious, score,
             assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("oblivious", [False, True])
+@pytest.mark.parametrize("O", [256, 300])
+def test_level_score_wide_outputs(cuda_device, O, oblivious):
+    """K3 at O = 256 and 300 (256 bins), where even one (node, feature)'s
+    staged rows exceed the shared-memory budget: the plan stages them in
+    global scratch, and the kernel's chosen indices equal its plain
+    version's, its values within 1e-6 of scale; the same bits twice."""
+    F, n_nodes = 16, 8
+    assert K._score_plan(F, n_nodes, O, 256, oblivious).glob
+    rng = np.random.default_rng(O + oblivious)
+    args = _score_args(rng, cuda_device, F, n_nodes, O, oblivious, "cosine",
+                       10)
+    got = K.level_score_cuda(*args)
+    again = K.level_score_cuda(*args)
+    want = K.level_score_plain(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    assert torch.equal(got[0], want[0])
+    for a, b in zip(got[1:], want[1:]):
+        fin = torch.isfinite(b)
+        assert torch.equal(fin, torch.isfinite(a))
+        assert torch.equal(a[~fin], b[~fin])
+        if fin.any():
+            err = (a[fin] - b[fin]).abs().max().item()
+            assert err <= 1e-6 * b[fin].abs().max().item(), err
+
+
 def test_build_tree_on_card_matches_cpu(cuda_device):
     from gbrl_tpu_torch.config import TreeConfig
     from gbrl_tpu_torch.ops import candidates as C
@@ -435,11 +517,12 @@ class _FailingLibrary:
 @pytest.mark.parametrize("entry", ["gbrl_k1_bucketize",
                                    "gbrl_k2_level_histogram",
                                    "gbrl_k3_level_score",
-                                   "gbrl_k6_tree_build"])
+                                   "gbrl_k6_tree_build",
+                                   "gbrl_k4_leaf_sum", "gbrl_k5_leaf_sum"])
 def test_failing_launch_raises_without_fallback(cuda_device, monkeypatch,
                                                 entry):
     """A wrapper whose library call fails raises: it neither falls back to
-    the plain version nor counts a launch."""
+    the plain version nor counts a launch (K1-K6)."""
     Xd, cd, nd = _fit_inputs(np.random.default_rng(0), cuda_device, 256, 4,
                              16, 2)
     Xb = K.bucketize_cuda(Xd, cd)
@@ -456,6 +539,13 @@ def test_failing_launch_raises_without_fallback(cuda_device, monkeypatch,
                  lambda: K.tree_build_cuda(Xb, cd, fw, nd[:, :4].contiguous(),
                                            nd[:, :4].contiguous(), 2, 16, 3,
                                            "cosine", 0, False)}
+    ens = [torch.from_numpy(a).to(cuda_device) for a in
+           _ensemble(np.random.default_rng(1), True, 8, 4, 3, 3)]
+    ntd = torch.tensor(8, dtype=torch.int32, device=cuda_device)
+    calls["gbrl_k4_leaf_sum"] = lambda: K.weighted_leaf_sum_cuda(
+        Xd, *ens, 3, ntd)
+    calls["gbrl_k5_leaf_sum"] = lambda: K.oblivious_leaf_sum_cuda(
+        Xd, *ens, 3, ntd)
     real = K._library()
     monkeypatch.setattr(K, "_library", lambda: _FailingLibrary(real, entry))
     before = dict(K.launch_counts)

@@ -79,7 +79,10 @@ SCORE_SHAPES = [(4, 1, 3, False), (4, 8, 3, False), (4, 8, 3, True),
                 (300, 8, 3, True), (16, 16, 3, False), (16, 512, 3, False),
                 (16, 8, 1, False), (16, 8, 8, True), (5, 2, 8, False),
                 (1, 1, 3, False), (16, 64, 3, True), (16, 8, 224, False),
-                (3000, 2, 3, False), (40, 2048, 20, True)]
+                (3000, 2, 3, False), (40, 2048, 20, True),
+                # wide O: the staged rows in global scratch
+                (16, 8, 256, False), (16, 8, 256, True), (16, 1, 300, False),
+                (16, 8, 300, True), (4, 8, 300, False), (300, 2, 256, True)]
 
 
 @pytest.mark.parametrize("F,n_nodes,O,oblivious", SCORE_SHAPES)
@@ -87,8 +90,10 @@ def test_score_plan_covers_each_node_feature_once(F, n_nodes, O, oblivious):
     """K3's plan: the clusters, ranks, feature groups and node chunks of
     level_score_kernel (csrc/fit.cu) visit every (node, feature) exactly
     once per pass; blocks own contiguous features in rank order, so the
-    first index of the lowest rank with a hit is the level's; each block's
-    shared memory is the budget's or, past it, the smallest plan's."""
+    first index of the lowest rank with a hit is the level's; the staged
+    rows go to global scratch (one (node, feature) at a time, one slice per
+    block) exactly where even the smallest shared plan exceeds the budget,
+    and shared memory then holds only what does not grow with the rows."""
     B = 256
     plan = K._score_plan(F, n_nodes, O, B, oblivious)
     S, fpb, g, nc = plan.S, plan.fpb, plan.g, plan.nc
@@ -96,9 +101,17 @@ def test_score_plan_covers_each_node_feature_once(F, n_nodes, O, oblivious):
     NS = n_nodes if oblivious else 1
     units = 1 if oblivious else n_nodes       # clusters: fit.cu k3_config
     assert plan.smem == 4 * K._score_words(B + 1, O + 1, B, NS, fpb, g, nc,
-                                           plan.keep, plan.fuse)
-    if plan.smem > K.SCORE_SMEM_BUDGET:       # only the smallest plan
-        assert (g, nc, plan.keep, plan.fuse) == (1, 1, 0, 0)
+                                           plan.keep, plan.fuse, plan.glob)
+    smallest = 4 * K._score_words(B + 1, O + 1, B, NS, fpb, 1, 1, 0, 0)
+    assert plan.glob == (smallest > K.SCORE_SMEM_BUDGET)
+    if plan.glob:
+        assert (g, nc, plan.fuse) == (1, 1, 0)
+        assert plan.scratch == units * S * (O + 1) * ((B + 1) | 1)
+        # past the budget only with what shared memory must hold regardless
+        assert (plan.smem <= K.SCORE_SMEM_BUDGET
+                or 4 * (NS * (O + 2) + 36) > K.SCORE_SMEM_BUDGET)
+    else:
+        assert plan.scratch == 0 and plan.smem <= K.SCORE_SMEM_BUDGET
     hits = np.zeros((n_nodes, F), np.int64)
     starts = []
     for bx in range(units * S):
@@ -220,3 +233,137 @@ def test_tree_plan_covers_each_sample_and_unit_once(N, F, O, D, oblivious):
     assert K.TREE_SUB * (plan.gmax | 1) <= sizes["xb"]
     assert K.TREE_SUB * (KO | 1) <= sizes["v"]
     assert K.TREE_LEAVES * K.TREE_SUB <= 2 * sizes["list"]
+
+
+# --------------------------------------------------------------- K4 / K5
+# (N, F, T_cap, depth, O): the serving, PPO-rollout and A2C shapes, the
+# card tests' grid corners, chip_smoke.py's dispatch cases, deep trees and
+# wide F / O past the shared-memory budget
+PREDICT_SHAPES = [(4096, 16, 2048, 4, 3), (4096, 16, 1024, 4, 3),
+                  (1024, 4, 1024, 4, 3), (1, 16, 2048, 4, 3),
+                  (1000, 16, 256, 4, 3), (37, 5, 16, 3, 11),
+                  (100, 300, 64, 6, 2), (300, 16, 24, 10, 3),
+                  (64, 4, 8, 2, 2), (4096, 300, 512, 4, 3),
+                  (4096, 16, 512, 8, 3), (4096, 16, 512, 11, 3),
+                  (4, 16, 8, 12, 3), (1000, 1, 129, 1, 19),
+                  (4096, 16, 2048, 8, 8), (1000, 16, 64, 4, 2000),
+                  (0, 4, 0, 3, 2), (33, 3, 7, 9, 1), (2048, 16, 512, 4, 3),
+                  (2049, 16, 512, 4, 3), (1000, 16, 64, 9, 8)]
+
+
+def _rank_trees(plan, rank: int, T: int) -> list:
+    """The trees rank ``rank`` walks, in order, as predict.cu's tree_at and
+    rank_trees give them (every tree live): its chunks c = rank, rank + S,
+    ... in order, each chunk's trees in order."""
+    chunk, S = plan.chunk, plan.S
+    chunks = -(-T // chunk)
+    mine = -(-(chunks - rank) // S) if chunks > rank else 0
+    last = mine and (chunks - 1) % S == rank
+    n = mine * chunk - (chunks * chunk - T if last else 0)
+    return [(rank + (q // chunk) * S) * chunk + q % chunk for q in range(n)]
+
+
+def _staged_trees(plan, rank: int, T: int) -> list:
+    """The same trees as the staged instance loads them, ``sb`` positions a
+    stage."""
+    seq = _rank_trees(plan, rank, T)
+    return [t for q0 in range(0, len(seq), plan.sb)
+            for t in seq[q0:q0 + plan.sb]]
+
+
+@pytest.mark.parametrize("oblivious", [False, True])
+@pytest.mark.parametrize("N,F,T,D,O", PREDICT_SHAPES)
+def test_predict_plan_covers_each_tile_and_chunk_once(N, F, T, D, O,
+                                                      oblivious):
+    """K4/K5's plan: every (sample tile, tree) pair is walked by exactly one
+    block, each rank's trees in increasing order and in whole chunks of
+    chunk c -> rank c % S, for every n_trees; the staged and the global
+    routes walk the same sequence; the cluster size and chunk (which fix
+    every add) come from (N, T_cap) alone, so K4 and K5 share them; each
+    region fits its block."""
+    plan = K._predict_plan(N, F, T, D, O, oblivious)
+    other = K._predict_plan(N, F, T, D, O, not oblivious)
+    assert (plan.S, plan.groups, plan.chunk) == (other.S, other.groups,
+                                                 other.chunk)
+    G = plan.groups
+    assert G == K._predict_groups(N, O) and G in (1, K.PREDICT_GROUPS)
+    assert plan.S == K._predict_ranks(N, T, G)
+    assert plan.S in (1, 2, 4, 8, 16) and plan.chunk == K.PREDICT_CHUNK
+    if G > 1:        # small N: one block of warp groups a tile, no cluster
+        assert plan.S == 1 and plan.tile == K.PREDICT_MIN_TILE
+        assert N <= K.PREDICT_SPLIT_N and O <= K.PREDICT_OREG
+        assert K.PREDICT_GROUP % G == 0    # a stage starts at a multiple
+    assert plan.tile * G <= K.PREDICT_MAX_TILE
+    assert plan.tile % 32 == 0
+    assert K.PREDICT_MIN_TILE <= plan.tile <= K.PREDICT_MAX_TILE
+    tiles = -(-N // plan.tile)
+    assert plan.grid == tiles * plan.S
+    if plan.staged:
+        assert K.PREDICT_GROUP <= plan.sb <= K.PREDICT_STAGE
+        assert D <= K.PREDICT_MAX_STAGED_DEPTH
+        assert plan.smem <= K.PREDICT_SMEM_BUDGET
+        KN = D if oblivious else (1 << D) - 1
+        assert plan.buf >= plan.sb * (8 * KN + 4 * (1 << D) * O)
+        assert plan.ring_off >= 4 * F * plan.tile
+    for nt in sorted({T, T // 2, min(T, 129), min(T, 1), 0}):
+        hits = np.zeros((tiles, nt), np.int64)
+        for rank in range(plan.S):
+            seq = _rank_trees(plan, rank, nt)
+            assert seq == sorted(seq)
+            if plan.staged:
+                assert _staged_trees(plan, rank, nt) == seq
+            assert all((t // plan.chunk) % plan.S == rank for t in seq)
+            # the groups split the rank's positions, each in order
+            parts = [seq[g::G] for g in range(G)]
+            assert sorted(sum(parts, [])) == seq
+            for ti in range(tiles):
+                for part in parts:
+                    hits[ti, part] += 1
+        assert (hits == 1).all()
+    red = G if G > 1 else int(plan.S > 1 or O > K.PREDICT_OREG)
+    if plan.red_global:
+        assert red and 4 * O * plan.tile > K.PREDICT_SMEM_BUDGET
+        assert plan.scratch == plan.grid * O * plan.tile
+    else:
+        assert plan.smem - plan.red_off == 4 * O * plan.tile * red
+
+
+@pytest.mark.parametrize("oblivious", [False, True])
+@pytest.mark.parametrize("N,F,T,D,O", PREDICT_SHAPES)
+def test_predict_plan_global_exactly_where_a_group_does_not_fit(
+        N, F, T, D, O, oblivious):
+    """The global route is taken exactly where no tile (from the largest
+    down to PREDICT_MIN_TILE) holds X's tile and two buffers of a group of
+    PREDICT_GROUP trees within the budget, or past the staged depths; the
+    plan is a pure function of the shapes."""
+    KN = D if oblivious else (1 << D) - 1
+    G = K._predict_groups(N, O)
+    red = G if G > 1 else int(K._predict_ranks(N, T, G) > 1
+                              or O > K.PREDICT_OREG)
+    top = (K.PREDICT_MIN_TILE if G > 1 else min(
+        K.PREDICT_MAX_TILE, max(K.PREDICT_MIN_TILE, -(-N // 32) * 32)))
+    tiles = [top >> k for k in range(8) if top >> k >= K.PREDICT_MIN_TILE]
+    group = [4 * F * t + 2 * K.PREDICT_GROUP * (8 * KN + 4 * (1 << D) * O)
+             + 4 * O * t * red for t in tiles]
+    fits = (D <= K.PREDICT_MAX_STAGED_DEPTH
+            and min(group) <= K.PREDICT_SMEM_BUDGET)
+    plan = K._predict_plan(N, F, T, D, O, oblivious)
+    assert plan.staged == fits
+    assert plan == K._predict_plan.__wrapped__(N, F, T, D, O, oblivious)
+
+
+def test_predict_plan_main_shapes():
+    """The serving and PPO-rollout shapes stage X and 16 trees a buffer in
+    blocks of 256 samples, 16 ranks a cluster; A2C (N = 1024) takes blocks
+    of 32 samples x 8 warp groups and no cluster; depth 11 and 12 at
+    F = 16 and O = 3 take the global route."""
+    for N, F, T, obl in ((4096, 16, 2048, False), (4096, 16, 2048, True),
+                         (4096, 4, 1024, False)):
+        plan = K._predict_plan(N, F, T, 4, 3, obl)
+        assert (plan.S, plan.groups, plan.tile, plan.staged, plan.sb) == (
+            16, 1, 256, 1, 16)
+    plan = K._predict_plan(1024, 4, 1024, 4, 3, True)
+    assert (plan.S, plan.groups, plan.tile, plan.staged, plan.sb,
+            plan.grid) == (1, 8, 32, 1, 32, 32)
+    for D in (11, 12):
+        assert not K._predict_plan(4096, 16, 512, D, 3, False).staged

@@ -177,3 +177,126 @@ def test_ensemble_numpy_round_trip():
     for k in arrs:
         assert back[k].dtype == arrs[k].dtype, k
         np.testing.assert_array_equal(back[k], arrs[k])
+
+
+# ------------------------------------------------- the reference's methods
+REF_CLASSES = [("learners.base", "BaseLearner"),
+               ("learners.gbt_learner", "GBTLearner"),
+               ("learners.multi_gbt_learner", "MultiGBTLearner"),
+               ("learners.actor_critic_learner", "SharedActorCriticLearner"),
+               ("learners.actor_critic_learner", "SeparateActorCriticLearner"),
+               ("models.base", "BaseGBT"), ("models.gbt", "GBTModel"),
+               ("models.actor_critic", "ActorCritic"),
+               ("models.actor", "ParametricActor"),
+               ("models.actor", "GaussianActor"),
+               ("models.critic", "ContinuousCritic"),
+               ("models.critic", "DiscreteCritic")]
+
+
+@pytest.mark.parametrize("module,name", REF_CLASSES)
+def test_public_methods_exist_on_port(module, name):
+    """Every public method of the JAX package's class has a method of that
+    name on the port's counterpart (those of later slices raise the named
+    not-ported error rather than AttributeError)."""
+    import importlib
+    ref = getattr(importlib.import_module(f"gbrl_tpu.{module}"), name)
+    port = getattr(importlib.import_module(f"gbrl_tpu_torch.{module}"), name)
+    want = [m for m in dir(ref)
+            if not m.startswith("_") and callable(getattr(ref, m))]
+    missing = [m for m in want if not callable(getattr(port, m, None))]
+    assert not missing, f"{name} lacks {missing}"
+
+
+def _multi_pair():
+    from gbrl_tpu.learners.multi_gbt_learner import MultiGBTLearner as JMulti
+    from gbrl_tpu_torch.learners.multi_gbt_learner import MultiGBTLearner
+    X, rng = _data(5)
+    opt = dict(algo="SGD", init_lr=0.2, start_idx=0, stop_idx=2)
+    args = (F, 2, _struct("greedy"), opt, dict(split_score_func="l2"), 2)
+    jm, tm = JMulti(*args, device="cpu"), MultiGBTLearner(*args, device="cpu")
+    for m in (jm, tm):
+        m.reset()
+    for _ in range(3):
+        g = [rng.normal(size=(N, 2)).astype(np.float32) for _ in range(2)]
+        jm.step(X, g)
+        tm.step(X, g)
+    return jm, tm, X, rng
+
+
+def test_multi_distil_and_metadata_match_jax(capsys):
+    """MultiGBTLearner.distil (broadcast and one model) gives the JAX
+    package's losses, trees and predictions; print_ensemble_metadata prints
+    what the JAX package prints for the same ensembles."""
+    jm, tm, X, rng = _multi_pair()
+    jm.print_ensemble_metadata()
+    want = capsys.readouterr().out
+    tm.print_ensemble_metadata()
+    assert capsys.readouterr().out == want and "trees=3" in want
+    targets = [rng.normal(size=(N, 2)).astype(np.float32) for _ in range(2)]
+    params = dict(max_depth=2, distil_budget=4, lr=0.5)
+    for model_idx in (None, 1):
+        jl = jm.distil(X, targets, params, model_idx=model_idx)
+        tl = tm.distil(X, targets, params, model_idx=model_idx)
+        jl, tl = (x if model_idx is None else (x,) for x in (jl, tl))
+        for (jloss, _), (tloss, _) in zip(jl, tl):
+            np.testing.assert_allclose(tloss, jloss, rtol=1e-5)
+    for j, t in zip(jm.learners, tm.learners):
+        assert t.cfg.max_depth == 2 and t.get_num_trees() == 4
+        assert np.array_equal(ensemble_to_numpy(t.ens)["feat"],
+                              np.asarray(j.ens.feat))
+    for a, b in zip(tm.predict(X, tensor=False), jm.predict(X, tensor=False)):
+        _assert_same(a, b)
+    jm.print_ensemble_metadata()
+    want = capsys.readouterr().out
+    tm.print_ensemble_metadata()
+    assert capsys.readouterr().out == want
+
+
+def test_set_device_moves_the_ensembles():
+    """set_device on a learner, a multi-learner and a model facade: the
+    ensembles' tensors move, predictions stay, get_device reports it; CUDA
+    without a card raises, as every entry point does."""
+    jm, tm, X, _ = _multi_pair()
+    before = tm.predict(X, tensor=False)
+    pol, val = _opts("SGD")
+    model = ActorCritic(_struct("greedy"), F, O, dict(pol), dict(val),
+                        device="cpu")
+    learners = [tm, model]
+    if torch.cuda.is_available():
+        for obj in learners:
+            obj.set_device("cuda")
+        assert tm.get_device() == ("cuda", "cuda")
+        assert all(lr.ens.feat.device.type == "cuda" for lr in tm.learners)
+        assert model.get_device() == "cuda"
+    else:
+        for obj in learners:
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                obj.set_device("cuda")
+    for obj in learners:
+        obj.set_device("cpu")
+    assert tm.get_device() == ("cpu", "cpu") and jm.get_device() == \
+        ("cpu", "cpu")
+    assert all(lr.ens.feat.device.type == "cpu" for lr in tm.learners)
+    for a, b in zip(tm.predict(X, tensor=False), before):
+        _assert_same(a, b)
+    model.set_device("cpu")
+    assert model.get_device() == "cpu"
+    assert model.learner.ens.feat.device.type == "cpu"
+
+
+def test_later_slice_methods_raise_not_ported():
+    """The methods of the SHAP and utils slices raise the port's named
+    not-ported error on the multi-learner, the model facades and the
+    learner's reference-format writer."""
+    _, tm, X, _ = _multi_pair()
+    pol, val = _opts("SGD")
+    model = ActorCritic(_struct("greedy"), F, O, dict(pol), dict(val),
+                        device="cpu")
+    calls = [lambda: tm.print_tree(0), lambda: tm.plot_tree(0, "t"),
+             lambda: tm.tree_shap(0, X), lambda: tm.shap(X),
+             lambda: model.print_tree(0), lambda: model.plot_tree(0, "t"),
+             lambda: model.tree_shap(0, X), lambda: model.shap(X),
+             lambda: tm.learners[0].save_reference_format("m")]
+    for call in calls:
+        with pytest.raises(NotImplementedError, match="not ported"):
+            call()

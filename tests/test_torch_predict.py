@@ -139,6 +139,102 @@ def test_k4_plain_matches_pallas_interpret():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
+def _tables(rng, n, f, o, depth, cap, oblivious):
+    """Random node tables (pass-through nodes included; one (feat, thr,
+    is_split) per level when ``oblivious``), leaf values, coefficients and
+    X with x == thr ties and a NaN row, as numpy arrays."""
+    IN, L = (1 << depth) - 1, 1 << depth
+    feat = rng.integers(-1, f, (cap, IN)).astype(np.int32)
+    thr = rng.normal(size=(cap, IN)).astype(np.float32)
+    spl = rng.random((cap, IN)) > 0.3
+    if oblivious:
+        for d in range(depth):
+            lo, k = (1 << d) - 1, 1 << d
+            for a in (feat, thr, spl):
+                a[:, lo:lo + k] = a[:, lo:lo + 1]
+    lv = rng.normal(size=(cap, L, o)).astype(np.float32)
+    coeff = rng.normal(size=(cap, o)).astype(np.float32)
+    X = rng.normal(size=(n, f)).astype(np.float32)
+    X[: n // 4, max(feat[0, 0], 0)] = thr[0, 0]
+    X[-1] = np.nan
+    return X, feat, thr, spl, lv, coeff
+
+
+@pytest.mark.parametrize("oblivious", [False, True])
+@pytest.mark.parametrize("n,f,o,depth,cap,nt", [(200, 6, 3, 3, 16, 9),
+                                                (64, 5, 11, 4, 8, 8),
+                                                (40, 16, 3, 11, 4, 3)])
+def test_plain_coeff_equals_prescaled_bits(oblivious, n, f, o, depth, cap,
+                                           nt):
+    """The plain K4 / K5 given the leaf values and a separate ``coeff``
+    give the same bits as given ``leaf_values * coeff[:, None, :]`` (the
+    product ops/predict.py built before), also through the wrappers on CPU
+    tensors; on an oblivious ensemble K5's bits equal K4's."""
+    rng = np.random.default_rng(n + o + depth)
+    X, feat, thr, spl, lv, coeff = (_t(a) for a in _tables(
+        rng, n, f, o, depth, cap, oblivious))
+    w = lv * coeff[:, None, :]
+    fns = [(K.weighted_leaf_sum_plain, K.weighted_leaf_sum_cuda)]
+    if oblivious:
+        fns.append((K.oblivious_leaf_sum_plain, K.oblivious_leaf_sum_cuda))
+    outs = []
+    for plain, wrapper in fns:
+        want = plain(X, feat, thr, spl, w, depth, nt)
+        got = plain(X, feat, thr, spl, lv, depth, nt, coeff)
+        assert torch.equal(got, want)
+        ntd = torch.tensor(nt, dtype=torch.int32)
+        assert torch.equal(wrapper(X, feat, thr, spl, lv, depth, ntd, coeff),
+                           want)
+        outs.append(got)
+    assert all(torch.equal(a, outs[0]) for a in outs[1:])
+
+
+@pytest.mark.parametrize("oblivious", [False, True])
+@pytest.mark.parametrize("n,f,o,depth,cap,nt", [(200, 6, 3, 3, 16, 9),
+                                                (64, 5, 11, 3, 8, 6)])
+def test_plain_coeff_matches_pallas_interpret(oblivious, n, f, o, depth, cap,
+                                              nt):
+    """The plain K4 (and, on an oblivious ensemble, K5) with a separate
+    ``coeff`` against the JAX Pallas kernels in interpret mode given the
+    pre-scaled weights, at a small size and at O = 11."""
+    from gbrl_tpu.ops.pallas_kernels import (oblivious_leaf_sum_pallas,
+                                             weighted_leaf_sum_pallas)
+    rng = np.random.default_rng(n * o + depth)
+    X, feat, thr, spl, lv, coeff = _tables(rng, n, f, o, depth, cap,
+                                           oblivious)
+    X[-1] = 0.5                  # the Pallas kernels' one-hot select of NaN
+    coeff[nt:] = 0.0             # as every caller: zero past n_trees
+    spl &= feat >= 0             # as fitted trees: feat -1 only unsplit
+    w = lv * coeff[:, None, :]
+    pairs = [(weighted_leaf_sum_pallas, K.weighted_leaf_sum_plain)]
+    if oblivious:
+        pairs.append((oblivious_leaf_sum_pallas, K.oblivious_leaf_sum_plain))
+    for pallas, plain in pairs:
+        want = pallas(jnp.asarray(X), jnp.asarray(feat), jnp.asarray(thr),
+                      jnp.asarray(spl), jnp.asarray(w), depth,
+                      interpret=True, n_trees=jnp.asarray(nt, jnp.int32))
+        got = plain(*(_t(a) for a in (X, feat, thr, spl, lv)), depth, nt,
+                    _t(coeff))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_depth_11_matches_xla():
+    """Depth 11 at F = 16, O = 3 (past the old shared-memory ceiling):
+    ``ops.predict.weighted_leaf_sum`` against the JAX package's XLA walk on
+    the same ensemble and coefficients."""
+    rng = np.random.default_rng(11)
+    n, f, o, depth, t_cap = 64, 16, 3, 11, 3
+    cfg_j, ens_j, cap = _random_ensemble(rng, f, o, depth, t_cap)
+    X = rng.normal(size=(n, f)).astype(np.float32)
+    coeff = (rng.normal(size=(cap, o))
+             * (np.arange(cap) < t_cap)[:, None]).astype(np.float32)
+    want = jpred.weighted_leaf_sum(cfg_j, ens_j, jnp.asarray(X),
+                                   jnp.asarray(coeff))
+    got = tpred.weighted_leaf_sum(_port_cfg(cfg_j), _port(ens_j), _t(X),
+                                  _t(coeff))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
 def test_plain_ignores_trees_beyond_n_trees():
     """Stale nonzero weights at t >= n_trees contribute nothing; n_trees = 0
     gives zeros."""

@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
-"""Time K1 (bucketize), K2 (level histogram), K3 (level split score) and K6
-(whole tree) of one checkout of gbrl_tpu_torch on one NVIDIA GPU, at the
-bench shape (N = 4096, F = 16) and the PPO minibatch shape (N = 512,
-F = 4), K1 and K2 beside torch.searchsorted and index_add_ on the same
-inputs.
+"""Time K1 (bucketize), K2 (level histogram), K3 (level split score), K6
+(whole tree), K4 and K5 (ensemble predict) of one checkout of
+gbrl_tpu_torch on one NVIDIA GPU: the fit kernels at the bench shape
+(N = 4096, F = 16) and the PPO minibatch shape (N = 512, F = 4), K1 and K2
+beside torch.searchsorted and index_add_ on the same inputs; K4 and K5 at
+the serving shape (N = 4096, 1600 of 2048 trees, F = 16) and at
+``chip_smoke.PREDICT_TIMES``' PPO-rollout and A2C shapes, both the kernel
+wrapper and the whole ``ops.predict.weighted_leaf_sum`` call.
 
     python3 time_fit_kernels.py [--root DIR] [--seed 0]
 
@@ -13,10 +16,14 @@ run parent, change, change, parent.  Inputs, timing and bounds are
 ``chip_smoke.py``'s (``fit_time_inputs``, ``fit_kernel_times``): call_ms is
 the median single call between CUDA events, kernel_ms the profiler's
 device time per call; K2's and K3's numbers are one tree's four levels
-summed; K6 fits one greedy cosine tree of depth 4 on ``tree_inputs``.
-Prints one JSON line per kernel and shape."""
+summed; K6 fits one greedy cosine tree of depth 4 on ``tree_inputs``.  A
+checkout whose K4 / K5 wrappers take no ``coeff`` (before the fused
+product) is given the pre-scaled weights, made outside the timed call;
+``weighted_leaf_sum`` times what a request pays in either version.  Prints
+one JSON line per kernel and shape."""
 import argparse
 import importlib.util
+import inspect
 import json
 import os
 import sys
@@ -59,7 +66,54 @@ def main() -> int:
             t = cs.fit_kernel_times(name, inp[name], fast)
             print(json.dumps(dict(root=args.root, kernel=name, shape=shape,
                                   **t)), flush=True)
+    time_predict(cs, K, rng, dev, args.root)
     return 0
+
+
+def time_predict(cs, K, rng, dev, root: str) -> None:
+    """K4 / K5 at the serving and the RL shapes: the wrapper (call, host,
+    kernel) and the whole ``ops.predict.weighted_leaf_sum`` call."""
+    import torch
+    from gbrl_tpu_torch.config import TreeConfig
+    from gbrl_tpu_torch.ensemble import ensemble_from_numpy
+    from gbrl_tpu_torch.ops.predict import weighted_leaf_sum
+    fused = "coeff" in inspect.signature(
+        K.weighted_leaf_sum_cuda).parameters
+    cases = [("serving", "weighted_leaf_sum", "greedy", cs.N, cs.F,
+              cs.CAPACITY, cs.N_TREES),
+             ("serving", "oblivious_leaf_sum", "oblivious", cs.N, cs.F,
+              cs.CAPACITY, cs.N_TREES)] + list(cs.PREDICT_TIMES)
+    for label, name, policy, n, f, cap, nt in cases:
+        arrs = cs.synthetic_ensemble(rng, policy, f, cs.DEPTH, cap, nt)
+        X = cs.observations(rng, arrs, n, f)
+        coeff = rng.uniform(0.01, 0.1, size=(cap, cs.O)).astype(np.float32)
+        t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in
+             (X, arrs["feat"], arrs["thr"], arrs["is_split"],
+              arrs["leaf_values"])]
+        cd = torch.from_numpy(coeff).to(dev)
+        ntd = torch.tensor(nt, dtype=torch.int32, device=dev)
+        a = tuple(t) + (cs.DEPTH, ntd, cd)
+        fn = getattr(K, name + "_cuda")
+        if fused:
+            fast = fn
+        else:
+            w = t[4] * cd[:, None, :]
+            fast = lambda *x, fn=fn, w=w: fn(*x[:4], w, x[5], x[6])  # noqa
+        tm = cs.fit_kernel_times(name, [a], fast)
+        cfg = TreeConfig(input_dim=f, output_dim=cs.O, n_num_features=f,
+                         max_depth=cs.DEPTH, grow_policy=policy)
+        ens = ensemble_from_numpy(arrs, "cuda")
+        cfull = cd * (torch.arange(cap, device=dev) < nt)[:, None]
+
+        def request():
+            return weighted_leaf_sum(cfg, ens, t[0], cfull)
+        k_ms, per_call = cs.device_ms(request)
+        tm["request"] = dict(call_ms=cs.cuda_ms(request, cs.KERNEL_REPS),
+                             host_ms=cs.enqueue_ms(request), kernel_ms=k_ms,
+                             device_kernels=per_call)
+        print(json.dumps(dict(root=root, kernel=name, shape=label, n=n, f=f,
+                              t_cap=cap, n_trees=nt, fused=fused, **tm)),
+              flush=True)
 
 
 if __name__ == "__main__":
