@@ -68,6 +68,23 @@ Phases (any failure raises; the script then exits nonzero):
   12 RL times  update-phase latency on both paths, syncs, rollout rate,
              profiles; K6's call, host and kernel times at the PPO minibatch
              and the bench shape (one device launch per call).
+  13 AWR     on ``VecPendulum`` at examples/awr_vs_ref.py's width (8 envs,
+             rollouts of 2048, 60 critic + 20 actor trees on minibatches of
+             2048, depth 4, 256 bins, oblivious): AWR.learn on both tree
+             paths; one run_awr_update from one state on the card (both
+             paths) held against the CPU port tree for tree, launches
+             asserted (K1 = K5 = 80; K2 = K3 = 320 or K6 = 80; K4 = 0); the
+             update phase's p50 / p90, trees/s, host syncs (0 inside
+             awr_update_loop, asserted), device busy share; K1-K3 and K5 at
+             the update's shapes (N = 2048, F = 3, O = 1);
+  14 SAC     at examples/sac_pendulum.py's defaults (linear Q, twin
+             critics, 10-step targets, batch 256): SAC.learn, launches
+             asserted per train step (K1 = 3, K2 = K3 = 12, K5 = 8); one
+             sac_train_step from one state per Q-form, the same noise, on the
+             card and the CPU port, tree for tree; the train step's p50 /
+             p90 and host syncs (1, the stats fetch, asserted); K1-K3 and K5
+             at the step's shapes (N = 256, F = 3, O = 2), K5 at the target's
+             prefix stop also held against the prefix alone.
 
 Without a CUDA device it exits nonzero before printing any result.  It
 prints, before the last line, the nvidia-smi name/power-limit line and one
@@ -208,6 +225,73 @@ class VecCartPole:
             truncs[reset] = False
         self.autoreset = terms | truncs
         return (self.state.astype(np.float32), rewards, terms, truncs, {})
+
+
+class VecPendulum:
+    """Pendulum-v1 for ``n`` envs in numpy, with the interface AWR and SAC
+    read from a gymnasium vector env (``num_envs``,
+    ``single_observation_space.shape``, ``single_action_space.{low, high,
+    shape}``, ``reset``, ``step``).  The equations and constants of
+    gymnasium's ``envs/classic_control/pendulum.py`` on a float64 state
+    (theta, theta_dot): g = 10, m = l = 1, dt = 0.05, speed clipped to 8,
+    torque to 2, reward -(angle_normalize(theta)^2 + 0.1 theta_dot^2 +
+    0.001 u^2) from the state before the step; observation (cos theta, sin
+    theta, theta_dot); no termination, truncation after 200 steps (the
+    TimeLimit of Pendulum-v1); the next-step autoreset of ``VecCartPole``.
+    Resets draw theta ~ U(-pi, pi), theta_dot ~ U(-1, 1) with a numpy
+    generator seeded by ``reset(seed)``."""
+    G, M, L, DT, MAX_SPEED, MAX_TORQUE, MAX_STEPS = (10.0, 1.0, 1.0, 0.05,
+                                                     8.0, 2.0, 200)
+
+    def __init__(self, n: int):
+        from types import SimpleNamespace
+        self.num_envs = n
+        self.single_observation_space = SimpleNamespace(shape=(3,))
+        self.single_action_space = SimpleNamespace(
+            low=np.full(1, -self.MAX_TORQUE, np.float32),
+            high=np.full(1, self.MAX_TORQUE, np.float32), shape=(1,))
+        self.rng = np.random.default_rng()
+        self.state = np.zeros((n, 2))
+        self.steps = np.zeros(n, np.int64)
+        self.autoreset = np.zeros(n, bool)
+
+    def _draw(self, k: int) -> np.ndarray:
+        return self.rng.uniform(-np.array([np.pi, 1.0]), [np.pi, 1.0],
+                                (k, 2))
+
+    def _obs(self) -> np.ndarray:
+        th, thdot = self.state[:, 0], self.state[:, 1]
+        return np.stack([np.cos(th), np.sin(th), thdot],
+                        axis=1).astype(np.float32)
+
+    def reset(self, seed=None):
+        self.rng = np.random.default_rng(seed)
+        self.state = self._draw(self.num_envs)
+        self.steps[:] = 0
+        self.autoreset[:] = False
+        return self._obs(), {}
+
+    def step(self, actions):
+        th, thdot = self.state[:, 0], self.state[:, 1]
+        u = np.clip(np.asarray(actions, np.float32).reshape(self.num_envs),
+                    -self.MAX_TORQUE, self.MAX_TORQUE)
+        norm = (th + np.pi) % (2 * np.pi) - np.pi
+        rewards = -(norm ** 2 + 0.1 * thdot ** 2 + 0.001 * u ** 2)
+        newthdot = thdot + (3 * self.G / (2 * self.L) * np.sin(th)
+                            + 3.0 / (self.M * self.L ** 2) * u) * self.DT
+        newthdot = np.clip(newthdot, -self.MAX_SPEED, self.MAX_SPEED)
+        self.state = np.stack([th + newthdot * self.DT, newthdot], axis=1)
+        self.steps += 1
+        terms = np.zeros(self.num_envs, bool)
+        truncs = self.steps >= self.MAX_STEPS
+        reset = self.autoreset
+        if reset.any():
+            self.state[reset] = self._draw(int(reset.sum()))
+            self.steps[reset] = 0
+            rewards[reset] = 0.0
+            truncs[reset] = False
+        self.autoreset = terms | truncs
+        return self._obs(), rewards, terms, truncs, {}
 
 
 def smi_line() -> str:
@@ -811,12 +895,12 @@ def fit_bounds(name: str, a) -> tuple:
         c = nd.shape[1]
         nonzero = int((nd != 0).sum().item())     # the adds this data needs
         return 4 * (n * f + n * c + f * c * nb), nonzero * f * FLOPS_PER_INSTR
-    hist, blocked, fw = a[:3]
+    hist, blocked, fw, _, o = a[:5]
     f, c, nb = hist.shape
     n_nodes, _, b = blocked.shape
-    per_cand = 5 * O + 8          # squares, sums, 2 divisions, sqrt, masks
+    per_cand = 5 * o + 8          # squares, sums, 2 divisions, sqrt, masks
     ops = f * c * nb + n_nodes * f * b * per_cand
-    nbytes = 4 * f * c * nb + n_nodes * f * b + 4 * f + 4 * n_nodes * (O + 4)
+    nbytes = 4 * f * c * nb + n_nodes * f * b + 4 * f + 4 * n_nodes * (o + 4)
     return nbytes, ops * FLOPS_PER_INSTR
 
 
@@ -879,17 +963,20 @@ def library_call(name: str, a):
 
 
 def fit_kernel_times(name: str, calls: list, fast, plain=None,
-                     plain_reps: int = KERNEL_REPS) -> dict:
+                     plain_reps: int = KERNEL_REPS,
+                     bound_calls: list = None) -> dict:
     """One kernel's times summed over ``calls`` (one tree's levels for K2
     and K3): call_ms (median single call between CUDA events), host_ms
     (enqueue time per call), kernel_ms and the device kernels per call
-    (profiler), the plain version's call time, the bound, and the library
-    call's call_ms / host_ms / kernel_ms where there is one."""
+    (profiler), the plain version's call time, the bound (of
+    ``bound_calls`` where the work the data needs is less than the
+    arguments show), and the library call's call_ms / host_ms / kernel_ms
+    where there is one."""
     tot = dict(call_ms=0.0, kernel_ms=0.0, host_ms=0.0, device_kernels={},
                plain_ms=0.0 if plain else None, bound_ms=0.0, t_bytes=0.0,
                t_ops=0.0, library_call_ms=None, library_kernel_ms=None,
                library_host_ms=None)
-    for a in calls:
+    for a, ab in zip(calls, bound_calls or calls):
         tot["call_ms"] += cuda_ms(lambda: fast(*a), KERNEL_REPS)
         tot["host_ms"] += enqueue_ms(lambda: fast(*a))
         k_ms, per_call = device_ms(lambda: fast(*a))
@@ -899,7 +986,7 @@ def fit_kernel_times(name: str, calls: list, fast, plain=None,
             tot["device_kernels"][k] = max(n, tot["device_kernels"].get(k, 0))
         if plain:
             tot["plain_ms"] += cuda_ms(lambda: plain(*a), plain_reps)
-        nbytes, ops = fit_bounds(name, a)
+        nbytes, ops = fit_bounds(name, ab)
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
         tot["bound_ms"] += max(t_bytes, t_ops) * 1e3
         tot["t_bytes"] += t_bytes
@@ -1536,6 +1623,482 @@ def phase_rl_times(rng, dev, ppo: dict, tree_args: dict, tree_err: float):
     return entry
 
 
+# ======================================= continuous control: AWR and SAC
+# examples/awr_vs_ref.py:35-40: 8 Pendulum envs, rollouts of 2048 steps,
+# 60 critic and 20 actor trees per iteration on minibatches of 2048
+AWR_ENVS, AWR_STEPS, AWR_BATCH = 8, 2048, 2048
+AWR_CRITIC_UPDATES, AWR_ACTOR_UPDATES = 60, 20
+AWR_TREES = AWR_CRITIC_UPDATES + AWR_ACTOR_UPDATES
+AWR_ITERS = 2                       # AWR.learn iterations per tree path
+AWR_TIMED, AWR_WARMUP = 6, 1        # update phases per path (phase 13)
+PENDULUM_F = 3
+# examples/sac_pendulum.py's defaults: 8 envs, batches of 256, two
+# gradient steps every second env step from step 1000
+SAC_ENVS, SAC_BATCH, SAC_LEARN_STEPS, SAC_SHORT_STEPS = 8, 256, 3000, 1700
+SAC_TIMED, SAC_WARMUP = 30, 5       # train steps timed (phase 14)
+SAC_STATS_TOL = 1e-5                # card vs CPU port: rtol and atol
+# K5 calls in one SAC train step, in order: the actor on the next
+# observations, the two target critics (ensemble prefix), the two critics,
+# the actor, the two updated critics
+SAC_PREDICTS, SAC_TARGET_PREDICT = 8, 1
+KERNEL_SITES = (("ops.candidates", "bucketize_cuda", "bucketize"),
+                ("ops.fit", "level_histogram_cuda", "level_histogram"),
+                ("ops.fit", "level_score_cuda", "level_score"),
+                ("ops.predict", "oblivious_leaf_sum_cuda",
+                 "oblivious_leaf_sum"))
+
+
+@contextlib.contextmanager
+def recorded_kernel_calls(limit: int = DEPTH):
+    """Record (on the device, cloned) the arguments of the first ``limit``
+    calls of K1, K2, K3 and K5 that the path makes; yields {name: [args]}.
+    The clones are not kernel launches."""
+    import importlib
+    import torch
+    calls = {name: [] for _, _, name in KERNEL_SITES}
+    patched = []
+    for mod, attr, name in KERNEL_SITES:
+        m = importlib.import_module(f"gbrl_tpu_torch.{mod}")
+        real = getattr(m, attr)
+
+        def record(*a, _real=real, _name=name):
+            if len(calls[_name]) < limit:
+                calls[_name].append(tuple(
+                    x.clone() if isinstance(x, torch.Tensor) else x
+                    for x in a))
+            return _real(*a)
+        setattr(m, attr, record)
+        patched.append((m, attr, real))
+    try:
+        yield calls
+    finally:
+        for m, attr, real in patched:
+            setattr(m, attr, real)
+
+
+def path_kernel_times(label: str, calls: dict, k5_index: int,
+                      k5_stop: int = None) -> dict:
+    """K1, K2 and K3 at the first tree of a path and K5 at one of its
+    predicts, with the arguments the path gave them (``recorded_kernel
+    _calls``): held against their plain versions (K1 and K3 equal, K2 the
+    same bits on two launches and within RTOL / ATOL, K5 within RTOL / ATOL,
+    and with a prefix stop ``k5_stop`` also within them of the plain version
+    of the prefix alone), then call / host / kernel time, one device kernel
+    per call, beside the plain version, the bound and the library call.
+    Returns {name: times}."""
+    import torch
+    from gbrl_tpu_torch.ops import kernels as K
+    (X, cand), = calls["bucketize"][:1]
+    assert torch.equal(K.bucketize_cuda(X, cand),
+                       K.bucketize_plain(X, cand)), f"K1 {label}"
+    for a in calls["level_histogram"]:
+        h = K.level_histogram_cuda(*a)
+        assert torch.equal(h, K.level_histogram_cuda(*a)), f"K2 {label}"
+        want = K.level_histogram_plain(*a)
+        assert max_err(h, want) <= close_limit(want), f"K2 {label}"
+    for a in calls["level_score"]:
+        for x, y in zip(K.level_score_cuda(*a), K.level_score_plain(*a)):
+            assert torch.equal(x, y), f"K3 {label}"
+    k5 = calls["oblivious_leaf_sum"][k5_index]
+    nt = int(k5[6].item())
+    got = K.oblivious_leaf_sum_cuda(*k5)
+    n, f = k5[0].shape
+    o = k5[4].shape[-1]
+    shape = f"N={n} F={f} O={o} n_trees={nt}"
+    check_close(f"{label} oblivious_leaf_sum {shape}", got,
+                K.oblivious_leaf_sum_plain(*k5[:6], nt, k5[7]))
+    k5_bound = k5
+    if k5_stop is not None:
+        assert k5_stop < nt, (k5_stop, nt)
+        check_close(f"{label} oblivious_leaf_sum {shape} against the "
+                    f"plain version of the first {k5_stop} trees alone", got,
+                    K.oblivious_leaf_sum_plain(*k5[:6], k5_stop, k5[7]))
+        k5_bound = (k5[:6] + (torch.tensor(k5_stop, device=X.device),)
+                    + k5[7:])
+    plans = [("bucketize", calls["bucketize"][:1], K.bucketize_cuda,
+              K.bucketize_plain, None),
+             ("level_histogram", calls["level_histogram"],
+              K.level_histogram_cuda, K.level_histogram_plain, None),
+             ("level_score", calls["level_score"], K.level_score_cuda,
+              K.level_score_plain, None),
+             ("oblivious_leaf_sum", [k5], K.oblivious_leaf_sum_cuda,
+              lambda *x: K.oblivious_leaf_sum_plain(*x[:6], nt, x[7]),
+              [k5_bound])]
+    out = {}
+    for name, cl, fast, plain, bound in plans:
+        t = fit_kernel_times(name, cl, fast, plain,
+                             5 if name == "level_score" else KERNEL_REPS,
+                             bound)
+        assert_one_kernel(name, label, t["device_kernels"])
+        lib = ("none" if t["library_call_ms"] is None else
+               f"call {t['library_call_ms']:.5f} ms, host "
+               f"{t['library_host_ms']:.5f} ms, kernel "
+               f"{t['library_kernel_ms']} ms")
+        where = (shape if name == "oblivious_leaf_sum"
+                 else f"N={X.shape[0]} F={X.shape[1]}")
+        print(f"  {name} [{label}: {where}"
+              f"{', ' + str(len(cl)) + ' levels' if len(cl) > 1 else ''}]: "
+              f"call {t['call_ms']:.5f} ms, host {t['host_ms']:.5f} ms, "
+              f"kernel {t['kernel_ms']} ms (device kernels per call "
+              f"{t['device_kernels']}) | plain {t['plain_ms']:.5f} ms | "
+              f"library {lib} | bound {t['bound_ms']:.7f} ms "
+              f"({t['bound_by']})")
+        out[name] = {k: t[k] for k in (
+            "call_ms", "host_ms", "kernel_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_call_ms", "library_host_ms",
+            "library_kernel_ms")} | {"shape": where}
+    return out
+
+
+def new_awr(device: str = "cuda"):
+    from gbrl_tpu_torch.rl import AWR
+    return AWR(VecPendulum(AWR_ENVS),
+               tree_struct=dict(max_depth=DEPTH, n_bins=N_BINS,
+                                min_data_in_leaf=0, par_th=2,
+                                grow_policy="oblivious"),
+               feature_weights=np.ones(PENDULUM_F), actor_lr=0.05,
+               critic_lr=0.05, beta=0.5, log_std_final=-1.4,
+               n_steps=AWR_STEPS, actor_updates=AWR_ACTOR_UPDATES,
+               critic_updates=AWR_CRITIC_UPDATES, batch_size=AWR_BATCH,
+               device=device)
+
+
+def launch_tuple(counts: dict) -> tuple:
+    """(K1, K2, K3, K6, K5, K4) launches."""
+    return tuple(counts[k] for k in ("bucketize", "level_histogram",
+                                     "level_score", "tree_build",
+                                     "oblivious_leaf_sum",
+                                     "weighted_leaf_sum"))
+
+
+def awr_launches(trees: int, k6: bool) -> tuple:
+    """Launches of AWR updates that fit ``trees`` trees: one K1 and one
+    K5 (the minibatch predict) per tree; K6, or K2 and K3 per level."""
+    level = 0 if k6 else DEPTH * trees
+    return (trees, level, level, trees if k6 else 0, trees, 0)
+
+
+def launches_of(counts: dict) -> str:
+    return (f"K1 {counts['bucketize']}, K2 {counts['level_histogram']}, K3 "
+            f"{counts['level_score']}, K6 {counts['tree_build']}, K5 "
+            f"{counts['oblivious_leaf_sum']}, K4 "
+            f"{counts['weighted_leaf_sum']}")
+
+
+def phase_awr(dev, seed: int, smi: str) -> dict:
+    """Phase 13: AWR.learn on Pendulum on the card on both tree paths, with
+    its launch counts; one run_awr_update from one carried state on the
+    card (both paths) against the CPU port, tree for tree, with its launch
+    counts; the update phase's wall time, trees/s, host synchronisations
+    and the device's busy share; K1-K3 and K5 at the shapes the update
+    gave them.  Returns those kernel times and the update's launches."""
+    import torch
+    from gbrl_tpu_torch import GBTLearner
+    from gbrl_tpu_torch.ensemble import ensemble_to_numpy, ensure_capacity
+    from gbrl_tpu_torch.ops import kernels as K
+    from gbrl_tpu_torch.rl import jit_awr as JA
+    from gbrl_tpu_torch.rl import jit_sac as JS
+    print(f"[13 AWR] {smi}", flush=True)
+    t_phase = time.perf_counter()
+    steps = AWR_ITERS * AWR_STEPS
+    for path in ("level", "k6"):
+        algo = new_awr()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        with tree_path(path == "k6"):
+            algo.learn(steps, seed=seed)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = dict(K.launch_counts)
+        na, nc = algo.actor.get_num_trees(), algo.critic.get_num_trees()
+        assert (na, nc) == (AWR_ITERS * AWR_ACTOR_UPDATES,
+                            AWR_ITERS * AWR_CRITIC_UPDATES), (na, nc)
+        rewards = np.asarray(algo.episode_rewards)
+        assert len(rewards) and np.isfinite(rewards).all()
+        assert all(m.uses_c_library for m in algo._mirrors)
+        assert launch_tuple(counts) == awr_launches(
+            AWR_ITERS * AWR_TREES, path == "k6"), counts
+        print(f"  AWR.learn {path} path: {steps} env steps, {na} actor and "
+              f"{nc} critic trees, {len(rewards)} episodes with finite "
+              f"rewards, mean-100 {algo.mean_reward():.2f}, rollouts and "
+              f"values served by the mirrors' C library; {secs:.2f} s; "
+              f"launches {launches_of(counts)}")
+    # one update phase from the last run's final state and replay
+    replay = algo._recompute_replay()
+    tmp = tempfile.mkdtemp()
+    paths = {m: os.path.join(tmp, f"awr_{m}") for m in ("actor", "critic")}
+    for m, p in paths.items():
+        getattr(algo, m).learner.save(p)
+
+    def loaded(device):
+        a = new_awr(device)
+        for m, p in paths.items():
+            getattr(a, m).learner = GBTLearner.load(p, device)
+        return a
+
+    def one_update(device: str, k6: bool, record: bool = False):
+        a = loaded(device)
+        nt0 = {m: getattr(a, m).get_num_trees() for m in paths}
+        K.reset_launch_counts()
+        with tree_path(k6), recorded_fits(JS) as fits, (
+                recorded_kernel_calls() if record
+                else contextlib.nullcontext()) as calls:
+            JA.run_awr_update(a, *replay[:3], np.random.default_rng(seed),
+                              replay[3])
+        if device == "cuda":
+            torch.cuda.synchronize()
+        ens = {m: ensemble_to_numpy(getattr(a, m).learner.ens)
+               for m in paths}
+        cfgs = {m: getattr(a, m).learner.cfg for m in paths}
+        return ens, nt0, fits, dict(K.launch_counts), calls, cfgs
+
+    cpu, nt0, _, _, _, cfgs = one_update("cpu", False)
+    update_launches, calls = {}, None
+    for label, k6 in (("K6 path", True), ("level path", False)):
+        card, _, fits, counts, rec, _ = one_update("cuda", k6, not k6)
+        assert launch_tuple(counts) == awr_launches(AWR_TREES, k6), counts
+        verdicts = [compare_phase(f"AWR {m} {label} vs CPU", cfgs[m],
+                                  card[m], cpu[m], fs, nt0[m], k)
+                    for m, fs, k in (
+                        ("critic", fits[:AWR_CRITIC_UPDATES],
+                         AWR_CRITIC_UPDATES),
+                        ("actor", fits[AWR_CRITIC_UPDATES:],
+                         AWR_ACTOR_UPDATES))]
+        print(f"  one run_awr_update on the card, {label} (replay "
+              f"{len(replay[0])} rows, {AWR_CRITIC_UPDATES} critic + "
+              f"{AWR_ACTOR_UPDATES} actor trees on minibatches of "
+              f"{AWR_BATCH}): launches {launches_of(counts)}; against the "
+              f"CPU port: critic {verdicts[0]}, actor {verdicts[1]}")
+        update_launches[label] = counts
+        if not k6:
+            calls = rec
+    # the update phase's wall time, both paths in turns
+    a = loaded("cuda")
+    lrs = {m: getattr(a, m).learner for m in paths}
+    for lr in lrs.values():
+        lr.ens = ensure_capacity(lr.ens, lr.get_num_trees() + AWR_TREES)
+    start = {m: (lr.ens, lr.get_num_trees()) for m, lr in lrs.items()}
+
+    def phase(k6: bool):
+        for m, lr in lrs.items():
+            lr.ens, lr._rl_host_n_trees = start[m]
+        with tree_path(k6):
+            JA.run_awr_update(a, *replay[:3], np.random.default_rng(1),
+                              replay[3])
+
+    times = {True: [], False: []}
+    for i in range(AWR_TIMED):
+        for k6 in ((True, False) if i % 2 == 0 else (False, True)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            phase(k6)
+            torch.cuda.synchronize()
+            if i >= AWR_WARMUP:
+                times[k6].append((time.perf_counter() - t0) * 1e3)
+    for k6, ts in times.items():
+        p50, p90 = np.percentile(ts, [50, 90])
+        print(f"  AWR update phase ({AWR_TREES} trees, replay "
+              f"{len(replay[0])} rows) {'K6 path' if k6 else 'level path'}: "
+              f"p50 {p50:.4f} ms p90 {p90:.4f} ms (n={len(ts)}, the two "
+              f"paths in turns); {AWR_TREES / p50 * 1e3:.1f} trees/s at "
+              f"the p50")
+    # host synchronisations: the loop alone, and the whole host wrapper
+    B = len(replay[0])
+    Xn, _ = lrs["actor"]._prepare(replay[0], grow_vocab=False)
+    d = [torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)
+         for x in (replay[1], replay[2], replay[3])]
+    r = np.random.default_rng(1)
+    plans = [torch.from_numpy(r.integers(0, B, (k, AWR_BATCH))).to(dev)
+             for k in (AWR_CRITIC_UPDATES, AWR_ACTOR_UPDATES)]
+    fw = lrs["actor"]._internal_feature_weights()
+    hp = JA.AWRHyper(act_dim=1, beta=a.beta, max_weight=a.max_weight,
+                     learn_std=a.learn_std, grad_clip=a.max_actor_grad_norm)
+    for k6 in (True, False):
+        with tree_path(k6):
+            n_loop = sync_count(lambda: JA.awr_update_loop(
+                lrs["actor"].cfg, lrs["critic"].cfg, hp,
+                (lrs["actor"].specs, lrs["critic"].specs),
+                (AWR_CRITIC_UPDATES, AWR_ACTOR_UPDATES),
+                start["actor"][0], start["critic"][0], Xn, d[0], d[1],
+                d[2], plans[0], plans[1], fw))
+        n_run = sync_count(lambda: phase(k6))
+        print(f"  host synchronisations, {'K6' if k6 else 'level'} path: "
+              f"{n_loop} inside awr_update_loop, {n_run} per run_awr_update")
+        assert n_loop == 0, f"awr_update_loop synchronised {n_loop} times"
+        print(f"  {'K6' if k6 else 'level'} path:")
+        profile_requests(lambda: phase(k6), n=1, what="update phase")
+    times = path_kernel_times("awr", calls, 0)
+    print(f"  phase 13 took {time.perf_counter() - t_phase:.1f} s")
+    return dict(times=times, launches=update_launches)
+
+
+def new_sac(q: str = "linear", device: str = "cuda"):
+    from gbrl_tpu_torch.rl import SAC
+    return SAC(VecPendulum(SAC_ENVS), q_func_type=q, actor_lr=0.02,
+               critic_lr=0.1, gamma=0.9, n_step=10, gradient_steps=2,
+               learning_starts=1000, batch_size=SAC_BATCH, train_freq=2,
+               target_update_interval=100, device=device)
+
+
+def sac_train_steps(steps: int) -> int:
+    """The train steps SAC.learn takes in ``steps`` env steps at the
+    defaults above (learning_starts 1000, train_freq 2, 2 gradient steps)."""
+    its = steps // SAC_ENVS
+    first = -(-1000 // SAC_ENVS)
+    return 2 * sum(1 for it in range(first, its + 1) if it % 2 == 0)
+
+
+def sac_launches(steps: int) -> tuple:
+    """Launches of ``steps`` SAC train steps on the level path: three trees
+    (K1, and K2 and K3 per level) and SAC_PREDICTS K5 predicts a step."""
+    return (3 * steps, 3 * DEPTH * steps, 3 * DEPTH * steps, 0,
+            SAC_PREDICTS * steps, 0)
+
+
+def sac_step_args(s, batch, eps):
+    """sac_train_step's arguments for the SAC ``s`` (its ensembles given
+    room for one more tree) on one batch and one pair of noise draws, on
+    its learners' device."""
+    import torch
+    from gbrl_tpu_torch.ensemble import ensure_capacity
+    from gbrl_tpu_torch.rl import jit_sac as JS
+    lrs = [s.actor.learner] + [c.learner for c in s.critics]
+    for lr in lrs:
+        lr.ens = ensure_capacity(lr.ens, lr.get_num_trees() + 1)
+    dev = lrs[0].torch_device
+    t = [torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)
+         for x in batch]
+    obs, act, rew, nobs, done, disc = t
+    hp = JS.SACHyper(act_dim=s.act_dim, q_func_type=s.q_func_type,
+                     max_grad_norm=s.max_grad_norm)
+    return (lrs[0].cfg, lrs[1].cfg, hp, (lrs[0].specs, lrs[1].specs),
+            lrs[0].ens, tuple(lr.ens for lr in lrs[1:]),
+            torch.tensor([c.target_prefix for c in s.critics],
+                         dtype=torch.int32, device=dev),
+            obs, act.reshape(-1, s.act_dim), rew, nobs, done, disc,
+            torch.tensor(s.alpha, device=dev),
+            lrs[0]._internal_feature_weights(),
+            *(torch.from_numpy(e).to(dev) for e in eps))
+
+
+def phase_sac(dev, seed: int, smi: str) -> dict:
+    """Phase 14: SAC.learn on Pendulum on the card (linear Q, twin
+    critics) with its launch counts; one sac_train_step from one carried
+    state, with the same noise, on the card and on the CPU port, for each
+    Q-form, tree for tree and stats within SAC_STATS_TOL, with its launch
+    counts; the train step's wall time and host synchronisations; K1-K3 and
+    K5 (the target's prefix predict) at the shapes the step gave them.
+    Returns those kernel times and the step's launches."""
+    import torch
+    from gbrl_tpu_torch import GBTLearner
+    from gbrl_tpu_torch.ensemble import ensemble_to_numpy
+    from gbrl_tpu_torch.ops import kernels as K
+    from gbrl_tpu_torch.rl import jit_sac as JS
+    print(f"[14 SAC] {smi}", flush=True)
+    t_phase = time.perf_counter()
+    states = {}
+    for q, steps in (("linear", SAC_LEARN_STEPS),
+                     ("quadratic", SAC_SHORT_STEPS),
+                     ("tanh", SAC_SHORT_STEPS)):
+        algo = new_sac(q)
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        algo.learn(steps, seed=seed)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = dict(K.launch_counts)
+        n = sac_train_steps(steps)
+        nts = [algo.actor.get_num_trees()] + [c.get_num_trees()
+                                              for c in algo.critics]
+        assert nts == [n] * 3, (nts, n)
+        assert launch_tuple(counts) == sac_launches(n), counts
+        rewards = np.asarray(algo.episode_rewards)
+        assert len(rewards) and np.isfinite(rewards).all()
+        assert np.isfinite(algo.alpha) and algo._mirror.uses_c_library
+        prefixes = [c.target_prefix for c in algo.critics]
+        if q == "linear":
+            assert 0 < prefixes[0] < n, prefixes
+        else:
+            for c in algo.critics:      # a prefix stop below n_trees
+                c.target_prefix = n // 2
+        print(f"  SAC.learn {q}: {steps} env steps, {n} train steps, {n} "
+              f"actor and 2 x {n} critic trees, {len(rewards)} episodes "
+              f"with finite rewards, mean-100 {algo.mean_reward():.2f}, "
+              f"alpha {algo.alpha:.5f}, target prefixes {prefixes}; "
+              f"{secs:.2f} s; launches {launches_of(counts)}")
+        states[q] = algo
+    # one train step from each carried state: card and CPU, same noise
+    step_launches = calls = None
+    for q, algo in states.items():
+        tmp = tempfile.mkdtemp()
+        models = [algo.actor] + algo.critics
+        paths = [os.path.join(tmp, f"sac_{i}") for i in range(len(models))]
+        for m, p in zip(models, paths):
+            m.learner.save(p)
+        r = np.random.default_rng(seed + 1)
+        batch = algo.buffer.sample(SAC_BATCH, r)
+        eps = r.normal(size=(2, SAC_BATCH, 1)).astype(np.float32)
+        out = {}
+        for device in ("cuda", "cpu"):
+            s = new_sac(q, device)
+            s.log_alpha = algo.log_alpha.detach().clone()
+            for m, p in zip([s.actor] + s.critics, paths):
+                m.learner = GBTLearner.load(p, device)
+            for c, ca in zip(s.critics, algo.critics):
+                c.target_prefix = ca.target_prefix
+            args = sac_step_args(s, batch, eps)
+            K.reset_launch_counts()
+            with recorded_fits(JS) as fits, (
+                    recorded_kernel_calls() if device == "cuda" and
+                    q == "linear" else contextlib.nullcontext()) as rec:
+                new_actor, new_critics, stats = JS.sac_train_step(*args)
+            vals = {k: float(v) for k, v in stats.items()}
+            out[device] = ([ensemble_to_numpy(e) for e in
+                            (new_actor,) + new_critics], vals, fits,
+                           dict(K.launch_counts), rec,
+                           [m.learner.cfg for m in [s.actor] + s.critics])
+        card, s_card, fits, counts, rec, cfgs = out["cuda"]
+        cpu, s_cpu = out["cpu"][:2]
+        assert launch_tuple(counts) == sac_launches(1), counts
+        nt0 = algo.actor.get_num_trees()
+        ties = sum(compare_trees(f"SAC {q} {what} vs CPU", cfg, fit,
+                                 tree_of(c, nt0), tree_of(p, nt0))
+                   for what, cfg, fit, c, p in zip(
+                       ("critic 1", "critic 2", "actor"),
+                       cfgs[1:] + cfgs[:1], fits, card[1:] + card[:1],
+                       cpu[1:] + cpu[:1]))
+        for k in s_cpu:
+            assert abs(s_card[k] - s_cpu[k]) <= SAC_STATS_TOL * (
+                1 + abs(s_cpu[k])), (q, k, s_card[k], s_cpu[k])
+        print(f"  one sac_train_step {q} (target prefixes "
+              f"{[c.target_prefix for c in algo.critics]} of {nt0} trees): "
+              f"launches {launches_of(counts)}; the 3 trees equal to the "
+              f"CPU port's" + (f" ({ties} a near tie)" if ties else "")
+              + f"; stats {s_card} vs {s_cpu}")
+        if q == "linear":
+            step_launches, calls = {"level path": counts}, rec
+            prefix = algo.critics[0].target_prefix
+    # the train step's wall time and host synchronisations, on from the
+    # linear run's state
+    algo = states["linear"]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    r = np.random.default_rng(seed)
+
+    def step():
+        JS.run_sac_train_step(algo, *algo.buffer.sample(SAC_BATCH, r), gen)
+
+    print(f"  SAC train step [batch {SAC_BATCH}, "
+          f"{algo.actor.get_num_trees()} trees]: "
+          f"{host_ms(step, SAC_TIMED, SAC_WARMUP)}")
+    n_sync = sync_count(step)
+    print(f"  host synchronisations per run_sac_train_step: {n_sync}")
+    assert n_sync == 1, f"run_sac_train_step synchronised {n_sync} times"
+    profile_requests(step, n=10, what="train step")
+    times = path_kernel_times("sac", calls, SAC_TARGET_PREDICT, prefix)
+    print(f"  phase 14 took {time.perf_counter() - t_phase:.1f} s")
+    return dict(times=times, launches=step_launches)
+
+
 def phase_predict_times(rng, dev, kernel_args: dict, launches: dict,
                         errs: dict) -> list:
     """Phase 5, kernels: K4 and K5 at the serving shape (greedy for K4,
@@ -1793,6 +2356,15 @@ def main() -> int:
     ppo = phase_ppo(rng, dev, args.seed)
     phase_a2c(rng, dev, args.seed)
     kernels.append(phase_rl_times(rng, dev, ppo, tree_args, tree_err))
+    # the continuous-control paths: each kernel's times at their shapes and
+    # its launches per AWR update phase (both tree paths) and per SAC step
+    for label, ph in (("awr", phase_awr(dev, args.seed, smi)),
+                      ("sac", phase_sac(dev, args.seed, smi))):
+        for e in kernels:
+            if e["name"] in ph["times"]:
+                e[f"{label}_shape"] = ph["times"][e["name"]]
+            e[f"{label}_launches"] = {path: c[e["name"]]
+                                      for path, c in ph["launches"].items()}
 
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -9,9 +9,9 @@ through the K1-K3 fit kernels (``csrc/fit.cu``) or, on the whole-tree path
 (``ops.fit._DISABLE_FUSED_TREE = False``), one K6 launch per tree
 (``csrc/tree.cu``); it serves predictions through the K4/K5 predict
 kernels (``csrc/predict.cu``), all wrapped in ``ops/kernels.py``.  ``rl``
-trains PPO and A2C on the card, their rollouts served by a host mirror of
-the ensemble (``utils/host_mirror.py``, ``csrc/mirror.c``).  AWR, SAC, SHAP
-and export come with later slices (ROADMAP.md).
+trains PPO, A2C, AWR and SAC on the card, their rollouts served by host
+mirrors of the ensembles (``utils/host_mirror.py``, ``csrc/mirror.c``).
+SHAP and export come with later slices (ROADMAP.md).
 """
 import torch as _torch
 

@@ -151,14 +151,18 @@ class GBTLearner(BaseLearner):
             self.vocab = CategoryVocab(n_cat)
         self._mapping_set = True
 
-    def _internal_feature_weights(self) -> torch.Tensor:
+    def _host_feature_weights(self) -> np.ndarray:
         """Per-internal-feature weights in [num block | cat block] order,
         mapped through the original column positions (both grow
-        policies), on the learner's device."""
+        policies), as a host array."""
         order = np.concatenate([np.where(self.num_mask)[0],
                                 np.where(~self.num_mask)[0]])
-        fw = np.ascontiguousarray(self.feature_weights[order], np.float32)
-        return torch.from_numpy(fw).to(self.torch_device)
+        return np.ascontiguousarray(self.feature_weights[order], np.float32)
+
+    def _internal_feature_weights(self) -> torch.Tensor:
+        """``_host_feature_weights`` on the learner's device."""
+        return torch.from_numpy(self._host_feature_weights()).to(
+            self.torch_device)
 
     def _n_codes(self) -> int:
         """Categorical code-space bound, padded to a power of two (>= 8)."""

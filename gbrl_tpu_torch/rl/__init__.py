@@ -2,26 +2,16 @@
 reference delegates algorithms to its companion repo GBRL_SB3, reference
 README.md:19).
 
-PPO and A2C train a shared actor-critic ensemble on the card: rollouts are
-served on the host by the ensemble mirror (utils/host_mirror.py) and each
-update runs on the device (``jit_update``, ``jit_a2c``).  AWR and SAC come
-with a later slice (ROADMAP.md) and raise when constructed.
+PPO and A2C train a shared actor-critic ensemble, AWR a Gaussian actor and
+a value critic, SAC a tanh-Gaussian actor and twin parametric Q-critics, all
+on the card: rollouts are served on the host by the ensemble mirrors
+(utils/host_mirror.py) and each update runs on the device (``jit_update``,
+``jit_a2c``, ``jit_awr``, ``jit_sac``).  SAC is EXPERIMENTAL, as in the JAX
+package: it learns contextual-bandit tasks but does not solve Pendulum at
+small tree budgets.
 """
-from ..learners.base import not_ported
 from .buffers import NStepAccumulator, ReplayBuffer, RolloutBuffer  # noqa: F401
 from .a2c import A2C  # noqa: F401
+from .awr import AWR  # noqa: F401
 from .ppo import PPO  # noqa: F401
-
-
-class AWR:
-    """Advantage-weighted regression: not ported yet."""
-
-    def __init__(self, *args, **kwargs):
-        raise not_ported("AWR", "slice 4")
-
-
-class SAC:
-    """Soft actor-critic: not ported yet."""
-
-    def __init__(self, *args, **kwargs):
-        raise not_ported("SAC", "slice 4")
+from .sac import SAC  # noqa: F401

@@ -1,0 +1,254 @@
+"""The SAC train step on the card: target computation, both critic boosting
+steps and the actor boosting step as one run of device work (counterpart of
+``gbrl_tpu/rl/jit_sac.py``).
+
+The facade path (rl/sac.py ``train_step`` with ``jit_train=False``) reads
+losses and gradients back to the host several times per gradient step.
+This step copies one minibatch to the device, queues every launch, and
+reads back only the three statistics the host needs for the (CPU torch)
+temperature update: one host synchronisation per train step, where the JAX
+package does ``jax.device_get(stats)``.
+
+Semantics follow rl/sac.py exactly: the same order (critics first, the
+actor against the UPDATED critics), the same tanh-Gaussian log-prob, the
+same parametric Q-forms (reference gbrl/models/critic.py:42-54), the same
+per-sample-block gradient clipping and the same ensemble-prefix targets
+(critic.py:165-193).  The noise comes in as two tensors instead of a JAX
+key; ``run_sac_train_step`` draws them from a ``torch.Generator`` on the
+learners' device.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..config import TreeConfig
+from ..ensemble import Ensemble, ensure_capacity
+from ..ops.boosting import _masked_candidates, predict_sgd, write_tree
+from ..ops.candidates import bucketize
+from ..ops.fit import build_tree, standardize_l2
+from ..optimizers import OptimizerSpec
+from .jit_update import _block_clip
+
+LOG_STD_MIN, LOG_STD_MAX = -20.0, 2.0
+STATS = ("critic_loss", "actor_loss", "logp_mean")
+
+
+class SACHyper(NamedTuple):
+    """SAC hyperparameters.  The bootstrap discount is not here: it rides
+    per sample (``discs`` = gamma^k for k-step transitions,
+    rl/buffers.NStepAccumulator)."""
+    act_dim: int
+    q_func_type: str      # 'linear' | 'quadratic' | 'tanh'
+    max_grad_norm: float  # 0.0 = off
+
+
+def clip_as_jax(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``jnp.clip``: the same values as ``torch.clamp``, and the same
+    gradient as JAX's, which is 1 inside, 0 outside and 1/2 on a bound
+    (``torch.clamp`` passes 1 there; ``torch.maximum`` / ``minimum`` split
+    a tie as JAX's max / min do)."""
+    lo_t = torch.full((), lo, dtype=x.dtype, device=x.device)
+    hi_t = torch.full((), hi, dtype=x.dtype, device=x.device)
+    return torch.minimum(torch.maximum(x, lo_t), hi_t)
+
+
+def q_values(w: torch.Tensor, b: torch.Tensor, a: torch.Tensor,
+             qtype: str) -> torch.Tensor:
+    """Q(theta, a) for the parametric forms (rl/sac.q_from_params)."""
+    s = torch.sum(w * a, dim=-1)
+    if qtype == "linear":
+        return s + b[:, 0]
+    if qtype == "quadratic":
+        return -((s - b[:, 0]) ** 2) + b[:, 1]
+    if qtype == "tanh":
+        return b[:, 0] * torch.tanh(s)
+    raise ValueError(qtype)
+
+
+def sample_squashed(mu: torch.Tensor, log_std: torch.Tensor,
+                    eps: torch.Tensor):
+    """a = tanh(mu + std * eps) and its log-prob with the tanh correction,
+    by the explicit Gaussian formula of the JAX fused step."""
+    log_std = clip_as_jax(log_std, LOG_STD_MIN, LOG_STD_MAX)
+    std = torch.exp(log_std)
+    u = mu + std * eps
+    a = torch.tanh(u)
+    logp = torch.sum(-0.5 * ((u - mu) / std) ** 2 - log_std
+                     - 0.5 * math.log(2.0 * math.pi), dim=-1)
+    logp = logp - torch.sum(torch.log(1.0 - a ** 2 + 1e-6), dim=-1)
+    return a, logp
+
+
+def _boost(cfg: TreeConfig, ens: Ensemble, X: torch.Tensor,
+           grads: torch.Tensor, feat_w: torch.Tensor) -> Ensemble:
+    """Append one tree fit on ``grads`` (numeric features, the full batch,
+    candidates from this batch) at device index ``n_trees``."""
+    N = X.shape[0]
+    w = torch.ones((N,), dtype=torch.float32, device=X.device)
+    build = standardize_l2(grads, w) if cfg.score == "l2" else grads
+    cand_vals = _masked_candidates(cfg, X, N)
+    tree = build_tree(cfg, bucketize(X, cand_vals), cand_vals, grads, build,
+                      w, feat_w)
+    return write_tree(ens, tree, ens.n_trees)
+
+
+def _critic_wb(hp: SACHyper, theta: torch.Tensor):
+    return theta[:, :hp.act_dim], theta[:, hp.act_dim:]
+
+
+def _clip_blocks(hp: SACHyper, g: torch.Tensor) -> torch.Tensor:
+    if not hp.max_grad_norm:
+        return g
+    A = hp.act_dim
+    return torch.cat([_block_clip(g[:, :A], hp.max_grad_norm),
+                      _block_clip(g[:, A:], hp.max_grad_norm)], dim=1)
+
+
+def sac_train_step(acfg: TreeConfig, ccfg: TreeConfig, hp: SACHyper,
+                   specs: Tuple[Tuple[OptimizerSpec, ...], ...],
+                   actor_ens: Ensemble, critic_ens: Sequence[Ensemble],
+                   prefixes: torch.Tensor, obs: torch.Tensor,
+                   actions: torch.Tensor, rewards: torch.Tensor,
+                   next_obs: torch.Tensor, dones: torch.Tensor,
+                   discs: torch.Tensor, alpha: torch.Tensor,
+                   feat_w: torch.Tensor, eps_next: torch.Tensor,
+                   eps_cur: torch.Tensor):
+    """One SAC gradient step on the tensors' device, with no host
+    synchronisation.
+
+    specs = (actor_specs, critic_specs); prefixes [n_critics] int32 target
+    prefixes; alpha a 0-d tensor; eps_next / eps_cur [N, A] the standard
+    normal draws for the next-observation and the current actions.  Every
+    ensemble must have room for one more tree.  Returns (actor ensemble,
+    tuple of critic ensembles, stats dict of 0-d device tensors)."""
+    actor_specs, critic_specs = specs
+    A = hp.act_dim
+    N = obs.shape[0]
+
+    # ---- target: y = R + disc * (1 - d) * (min_i Q_i^target - alpha lp')
+    th_next = predict_sgd(acfg, actor_ens, next_obs, actor_specs, 0,
+                          actor_ens.capacity)
+    na, nlogp = sample_squashed(th_next[:, :A], th_next[:, A:], eps_next)
+    tqs = []
+    for i, ens in enumerate(critic_ens):
+        th_t = predict_sgd(ccfg, ens, next_obs, critic_specs, 0, prefixes[i])
+        tqs.append(q_values(*_critic_wb(hp, th_t), na, hp.q_func_type))
+    qmin_t = torch.amin(torch.stack(tqs, 0), dim=0)
+    y = (rewards + discs * (1.0 - dones) * (qmin_t - alpha * nlogp)).detach()
+
+    # ---- critic boosting steps: gradients of 0.5 * (Q - y)^2 w.r.t. theta
+    new_critics, closses = [], []
+    for ens in critic_ens:
+        theta = predict_sgd(ccfg, ens, obs, critic_specs, 0, ens.capacity)
+        p = theta.detach().requires_grad_(True)
+        with torch.enable_grad():
+            q = q_values(*_critic_wb(hp, p), actions, hp.q_func_type)
+            loss = 0.5 * torch.mean((q - y) ** 2)
+            (g,) = torch.autograd.grad(loss, p)
+        g = _clip_blocks(hp, g * N)
+        new_critics.append(_boost(ccfg, ens, obs, g, feat_w))
+        closses.append(loss.detach())
+
+    # ---- actor boosting step against the UPDATED critics
+    theta_a = predict_sgd(acfg, actor_ens, obs, actor_specs, 0,
+                          actor_ens.capacity)
+    qthetas = [predict_sgd(ccfg, ens, obs, critic_specs, 0, ens.capacity)
+               for ens in new_critics]
+    p = theta_a.detach().requires_grad_(True)
+    with torch.enable_grad():
+        a, logp = sample_squashed(p[:, :A], p[:, A:], eps_cur)
+        qs = [q_values(*_critic_wb(hp, qt), a, hp.q_func_type)
+              for qt in qthetas]
+        qmin = torch.amin(torch.stack(qs, 0), dim=0)
+        aloss = torch.mean(alpha * logp - qmin)
+        (ga,) = torch.autograd.grad(aloss, p)
+    ga = _clip_blocks(hp, ga * N)
+    new_actor = _boost(acfg, actor_ens, obs, ga, feat_w)
+
+    stats = dict(critic_loss=torch.mean(torch.stack(closses)),
+                 actor_loss=aloss.detach(),
+                 logp_mean=torch.mean(logp.detach()))
+    return new_actor, tuple(new_critics), stats
+
+
+def _to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """A host array on ``dev`` without waiting for the card: staged in
+    pinned memory and copied asynchronously (a plain copy from pageable
+    memory synchronises the stream)."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if dev.type == "cuda":
+        t = t.pin_memory()
+    return t.to(dev, non_blocking=True)
+
+
+def run_sac_train_step(algo, obs: np.ndarray, actions: np.ndarray,
+                       rewards: np.ndarray, next_obs: np.ndarray,
+                       dones: np.ndarray, discs: np.ndarray,
+                       gen: torch.Generator) -> dict:
+    """Host wrapper: grow capacities, copy the minibatch to the device in
+    one packed block, draw the noise from ``gen`` (a generator on the
+    learners' device), run the step, read the stats back (the one host
+    synchronisation), then apply the ensemble-prefix target update and the
+    temperature update."""
+    actor_lr = algo.actor.learner
+    critic_lrs = [c.learner for c in algo.critics]
+    hp = SACHyper(act_dim=algo.act_dim, q_func_type=algo.q_func_type,
+                  max_grad_norm=algo.max_grad_norm or 0.0)
+
+    # host-side tree counters: int(ens.n_trees) would wait for the card
+    for lr in [actor_lr] + critic_lrs:
+        nt = lr._rl_host_n_trees
+        if nt is None:
+            nt = int(lr.ens.n_trees)
+        lr.ens = ensure_capacity(lr.ens, nt + 1)
+        lr._rl_host_n_trees = nt + 1
+
+    actor_lr._infer_mapping_from(obs)
+    assert actor_lr.vocab is None, \
+        "the fused SAC step takes numerical features only"
+    N = len(obs)
+    # one copy to the device: obs, actions, rewards, next_obs, dones,
+    # discs, alpha, the target prefixes and the feature weights
+    parts = [np.asarray(x, np.float32).reshape(N, -1) for x in
+             (obs, actions, rewards, next_obs, dones, discs)]
+    parts += [np.float32([[algo.alpha]]),
+              np.float32([[c.target_prefix for c in algo.critics]]),
+              actor_lr._host_feature_weights()[None, :]]
+    pack = _to_device(np.concatenate([p.reshape(-1) for p in parts]),
+                      actor_lr.torch_device)
+    X, act, rew, X_next, done, disc, alpha, prefixes, fw = (
+        t.reshape(p.shape)
+        for t, p in zip(torch.split(pack, [p.size for p in parts]), parts))
+    eps_next = torch.randn((N, algo.act_dim), generator=gen,
+                           device=X.device)
+    eps_cur = torch.randn((N, algo.act_dim), generator=gen, device=X.device)
+    new_actor, new_critics, stats = sac_train_step(
+        actor_lr.cfg, critic_lrs[0].cfg, hp,
+        (actor_lr.specs, critic_lrs[0].specs), actor_lr.ens,
+        tuple(lr.ens for lr in critic_lrs), prefixes[0].to(torch.int32), X,
+        act, rew[:, 0], X_next, done[:, 0], disc[:, 0], alpha[0, 0], fw[0],
+        eps_next, eps_cur)
+
+    actor_lr.ens = new_actor
+    actor_lr.total_iterations += 1
+    actor_lr._pred_cache = None
+    for lr, ens, critic in zip(critic_lrs, new_critics, algo.critics):
+        lr.ens = ens
+        lr.total_iterations += 1
+        lr._pred_cache = None
+        if lr._rl_host_n_trees % critic.target_update_interval == 0:
+            critic.target_prefix = lr._rl_host_n_trees
+
+    vals = torch.stack([stats[k] for k in STATS]).cpu().numpy()
+    out = {k: float(v) for k, v in zip(STATS, vals)}
+    if algo.auto_alpha:
+        algo.alpha_opt.zero_grad()
+        alpha_loss = -(algo.log_alpha
+                       * (out["logp_mean"] + algo.target_entropy))
+        alpha_loss.backward()
+        algo.alpha_opt.step()
+    return out

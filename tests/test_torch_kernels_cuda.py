@@ -106,10 +106,14 @@ def test_wrapper_raises_past_shared_memory_ceiling(cuda_device):
             assert torch.equal(K.oblivious_leaf_sum_cuda(*t, D, nt), got)
 
 
-# the grid of the redesigned K4 / K5: every depth x O pair, N and F in turn
+# the grid of the redesigned K4 / K5: every depth x O pair, N and F in turn;
+# then AWR's minibatch on both sides of the warp-group boundary
+# PREDICT_SPLIT_N (Pendulum's F = 3, O = 1) and SAC's batch (O = 2)
 PREDICT_GRID = [(n, f, o, d) for i, (d, o) in enumerate(
     (d, o) for d in (1, 4, 8, 11) for o in (1, 3, 8, 11, 19))
     for n, f in [((1, 1000, 4096)[i % 3], (1, 16, 300)[(i // 3) % 3])]]
+PREDICT_GRID += [(K.PREDICT_SPLIT_N, 3, 1, 4),
+                 (K.PREDICT_SPLIT_N + 1, 3, 1, 4), (256, 3, 2, 4)]
 
 
 @pytest.mark.parametrize("n,F,O,D", PREDICT_GRID)
@@ -149,6 +153,44 @@ def test_predict_grid_matches_plain(cuda_device, n, F, O, D):
                 assert torch.equal(k5, k4), nt
                 assert torch.equal(
                     K.oblivious_leaf_sum_cuda(*t[:4], w, D, ntd), k4)
+
+
+def test_prefix_stop_reads_only_the_prefix(cuda_device):
+    """SAC's target predict: ``predict_sgd`` with a device stop tree
+    below n_trees (256 rows, F = 3, O = 2, oblivious) launches K5 once and
+    equals the plain version of an ensemble cut to the prefix."""
+    from gbrl_tpu_torch.config import TreeConfig
+    from gbrl_tpu_torch.ensemble import ensemble_from_numpy
+    from gbrl_tpu_torch.ops.boosting import predict_sgd
+    from gbrl_tpu_torch.optimizers import OptimizerSpec
+    rng = np.random.default_rng(5)
+    T, nt, prefix, D = 512, 250, 200, 4
+    feat, thr, spl, lv = _ensemble(rng, True, T, 3, 2, D)
+    arrs = dict(feat=feat, thr=thr, cat_code=np.full_like(feat, -1),
+                is_split=spl, is_numeric=np.ones_like(spl),
+                leaf_values=lv, counts=np.zeros((T, 2 * (1 << D) - 1),
+                                                np.float32),
+                depths=np.full(T, D, np.int32),
+                bias=rng.normal(size=2).astype(np.float32),
+                n_trees=np.asarray(nt, np.int32))
+    cfg = TreeConfig(input_dim=3, output_dim=2, n_num_features=3,
+                     max_depth=D, grow_policy="oblivious")
+    specs = (OptimizerSpec.from_dict(dict(algo="SGD", init_lr=0.1,
+                                          start_idx=0, stop_idx=1)),
+             OptimizerSpec.from_dict(dict(algo="SGD", init_lr=0.05,
+                                          start_idx=1, stop_idx=2)))
+    X = rng.normal(size=(256, 3)).astype(np.float32)
+    stop = torch.tensor(prefix, dtype=torch.int32, device=cuda_device)
+    before = K.launch_counts["oblivious_leaf_sum"]
+    got = predict_sgd(cfg, ensemble_from_numpy(arrs, "cuda"),
+                      torch.from_numpy(X).to(cuda_device), specs, 0, stop)
+    torch.cuda.synchronize()
+    assert K.launch_counts["oblivious_leaf_sum"] == before + 1
+    arrs["n_trees"] = np.asarray(prefix, np.int32)
+    want = predict_sgd(cfg, ensemble_from_numpy(arrs, "cpu"),
+                       torch.from_numpy(X), specs, 0, T)
+    err = (got.cpu() - want).abs().max().item()
+    assert err <= 1e-5 * want.abs().max().item() + 1e-6, err
 
 
 # ------------------------------------------------------------ fit kernels

@@ -190,7 +190,9 @@ REF_CLASSES = [("learners.base", "BaseLearner"),
                ("models.actor", "ParametricActor"),
                ("models.actor", "GaussianActor"),
                ("models.critic", "ContinuousCritic"),
-               ("models.critic", "DiscreteCritic")]
+               ("models.critic", "DiscreteCritic"),
+               ("rl.ppo", "PPO"), ("rl.a2c", "A2C"), ("rl.awr", "AWR"),
+               ("rl.sac", "SAC")]
 
 
 @pytest.mark.parametrize("module,name", REF_CLASSES)
