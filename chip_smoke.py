@@ -12,7 +12,9 @@ greedy and oblivious.  Ensembles, observations and gradients are
 synthetic, made with numpy from ``--seed``.  The kernels are the CUDA C++
 ones in ``gbrl_tpu_torch/csrc``: K1 bucketize, K2 level histogram and K3
 level split score (``fit.cu``); K4 greedy and K5 oblivious leaf sums
-(``predict.cu``); K6 whole tree (``tree.cu``).
+(``predict.cu``); K6 whole tree (``tree.cu``).  SHAP and the utils
+(phase 15) add no kernel: their ensembles are grown through K1-K3 and held
+against predictions through K4 / K5.
 
 Phases (any failure raises; the script then exits nonzero):
   1 device   the card's name, power limit and CUDA version;
@@ -85,6 +87,21 @@ Phases (any failure raises; the script then exits nonzero):
              p90 and host syncs (1, the stats fetch, asserted); K1-K3 and K5
              at the step's shapes (N = 256, F = 3, O = 2), K5 at the target's
              prefix stop also held against the prefix alone.
+  15 explain/export  SHAP and the utils on ensembles grown on the card: a
+             shared ActorCritic per policy takes 400 steps (K1 = 400,
+             K2 = K3 = 1600 asserted), its twin is the same checkpoint on the
+             CPU port; ``shap`` over 4096 rows against the twin (first 512
+             rows), the host recursion (8 rows; ``tree_shap`` for 3 trees
+             too) and local accuracy (sum_f phi + E_raw against the raw leaf
+             sum through K4 / K5); ``ref_compat`` bit-equal to the twin;
+             shap p50 / p90, host syncs (equal at 200 and 400 trees), peak
+             memory, busy share; the float C header built with
+             ``CompiledModel`` against the card's predict; ``print_tree`` /
+             ``plot_tree``; the reference format written and loaded on the
+             card (predictions and SHAP); a mixed GBTModel (2 numeric, 4
+             categorical columns) against its twin; one ``shap`` call
+             under ``profiling.trace`` naming CUDA kernels and the
+             ``annotate`` span.
 
 Without a CUDA device it exits nonzero before printing any result.  It
 prints, before the last line, the nvidia-smi name/power-limit line and one
@@ -2099,6 +2116,285 @@ def phase_sac(dev, seed: int, smi: str) -> dict:
     return dict(times=times, launches=step_launches)
 
 
+# ============================================ 15 explain and export
+SHAP_TREES = 400        # trees grown per policy before SHAP and export
+SHAP_HALF = 200         # the snapshot whose SHAP syncs must equal the full's
+SHAP_CPU_ROWS = 512     # rows held against the CPU twin
+SHAP_ORACLE_ROWS = 8    # rows held against the host recursion
+SHAP_REF_ROWS = 64      # rows of the reference-compatible form
+SHAP_CALLS = 10         # timed shap calls per policy (p90: 1 beyond)
+SHAP_ORACLE_TREES = (0, SHAP_HALF - 1, SHAP_TREES - 1)
+MIXED_F = (2, 4)        # numeric and categorical columns of the mixed model
+MIXED_TREES = 20
+# card SHAP against the CPU port (the tree sums run in another order):
+# |card - cpu| <= SHAP_RTOL * max|cpu| + SHAP_ATOL
+SHAP_RTOL, SHAP_ATOL = 1e-5, 1e-6
+# the JAX tests' tolerances (tests/test_shap.py:98): the recursion, and the
+# local accuracy sum_f phi + E_raw = sum_t leaf_t(x), whose absolute part
+# scales with the raw sum (400 float32 trees summed in other orders)
+ORACLE_TOL = dict(rtol=1e-4, atol=1e-5)
+EXPORT_RTOL = 1e-4      # compiled header vs the card: 1e-4 * max(1, max|card|)
+
+
+def expected_raw(arrs: dict, depth: int, n_trees: int) -> np.ndarray:
+    """E_raw[o] = sum over live trees of the tree's expectation under the
+    edge weights counts[child] / counts[parent] (what SHAP's value
+    function gives the empty subset), float64, vectorized over trees."""
+    L = 1 << depth
+    lv = arrs["leaf_values"][:n_trees].astype(np.float64)
+    c = arrs["counts"][:n_trees].astype(np.float64)
+    spl = arrs["is_split"][:n_trees]
+
+    def ev(p: int, d: int) -> np.ndarray:
+        q = p
+        for _ in range(d, depth):
+            q = 2 * q + 1
+        leaf = lv[:, q - (L - 1)]
+        if d == depth:
+            return leaf
+        pc = c[:, p:p + 1]
+        safe = np.where(pc > 0, pc, 1.0)
+        split = (np.where(pc > 0, c[:, 2 * p + 1:2 * p + 2] / safe, 0.0)
+                 * ev(2 * p + 1, d + 1)
+                 + np.where(pc > 0, c[:, 2 * p + 2:2 * p + 3] / safe, 0.0)
+                 * ev(2 * p + 2, d + 1))
+        return np.where(spl[:, p:p + 1], split, leaf)
+    return ev(0, 0).sum(axis=0)
+
+
+def grow_shared(policy: str, seed: int, trees: int, n: int, snap: str):
+    """A shared ActorCritic grown on the card by ``trees`` steps on
+    synthetic gradients (seeded); saved to ``snap`` after ``trees // 2``.
+    Returns the model and the launches of K1-K3 over the steps."""
+    import torch
+    from gbrl_tpu_torch import ActorCritic
+    from gbrl_tpu_torch.ops import kernels as K
+    pol = dict(algo="SGD", lr=0.05, start_idx=0, stop_idx=O - 1)
+    val = dict(algo="SGD", lr="lin_0.1", T=2000, start_idx=O - 1,
+               stop_idx=O)
+    m = ActorCritic(dict(max_depth=DEPTH, n_bins=N_BINS, grow_policy=policy),
+                    F, O, pol, val, device="cuda")
+    r = np.random.default_rng(seed)
+    before = dict(K.launch_counts)
+    for i in range(trees):
+        m.step(r.normal(size=(n, F)).astype(np.float32),
+               r.normal(size=(n, O - 1)).astype(np.float32),
+               r.normal(size=(n,)).astype(np.float32))
+        if i + 1 == trees // 2:
+            m.save_learner(snap)
+    torch.cuda.synchronize()
+    got = {k: K.launch_counts[k] - before[k] for k in before}
+    return m, got
+
+
+def phase_explain(dev, seed: int, smi: str, trees: int = SHAP_TREES,
+                  n: int = N) -> dict:
+    """Phase 15: SHAP and the utils on ensembles grown on the card.  Grows
+    a shared ActorCritic per policy (K1-K3 launches asserted) and a mixed
+    GBTModel; holds the card's SHAP against the CPU twin, the host
+    recursion and local accuracy (the raw leaf sum through K4 / K5);
+    tree_shap against the recursion, ref_compat bit-equal to the CPU twin;
+    times SHAP, counts its host syncs (equal at half and all the trees),
+    its peak memory and device busy share; exports a float header, builds
+    it and holds it against the card's predict; prints and plots a tree;
+    round-trips the reference format on the card; traces one call.
+    Returns the launch counts of the phase."""
+    import contextlib as ctx
+    import io
+    import torch
+    from gbrl_tpu_torch import ActorCritic, GBTModel
+    from gbrl_tpu_torch.ensemble import ensemble_to_numpy
+    from gbrl_tpu_torch.ops import kernels as K
+    from gbrl_tpu_torch.ops import shap as H
+    from gbrl_tpu_torch.ops.predict import weighted_leaf_sum
+    from gbrl_tpu_torch.utils import profiling
+    from gbrl_tpu_torch.utils.c_runtime import CompiledModel
+    from gbrl_tpu_torch.utils.reference_import import load_reference_model
+    print(f"[15 explain/export] {smi}", flush=True)
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed + 15)
+    tmp = tempfile.mkdtemp()
+    K.reset_launch_counts()
+    rows = min(n, SHAP_CPU_ROWS)
+    oracle_trees = [t for t in SHAP_ORACLE_TREES if t < trees]
+    obs = rng.normal(size=(n, F)).astype(np.float32)
+    obs_dev = torch.from_numpy(obs).to(dev)
+    for policy in ("greedy", "oblivious"):
+        # -- grow on the card; its twin on the CPU from the checkpoint
+        snap = os.path.join(tmp, f"{policy}_half")
+        t0 = time.perf_counter()
+        card, got = grow_shared(policy, seed + (policy == "oblivious"),
+                                trees, n, snap)
+        grow_s = time.perf_counter() - t0
+        assert (got["bucketize"], got["level_histogram"],
+                got["level_score"]) == (trees, DEPTH * trees,
+                                        DEPTH * trees), got
+        path = os.path.join(tmp, policy)
+        card.save_learner(path)
+        cpu = ActorCritic.load_learner(path, device="cpu")
+        learner = card.learner
+        cfg = learner.cfg
+        assert card.get_num_trees() == cpu.get_num_trees() == trees
+        print(f"  {policy}: {trees} ActorCritic.step on the card in "
+              f"{grow_s:.2f} s, launches K1 {got['bucketize']}, K2 "
+              f"{got['level_histogram']}, K3 {got['level_score']}")
+        # -- SHAP on the card against the CPU twin, the recursion and
+        # local accuracy
+        phi = card.shap(obs)
+        assert isinstance(phi, np.ndarray) and phi.shape == (n, F, O)
+        assert np.isfinite(phi).all()
+        want = cpu.shap(obs[:rows])
+        err = np.abs(phi[:rows] - want).max()
+        lim = SHAP_RTOL * np.abs(want).max() + SHAP_ATOL
+        assert err <= lim, f"{policy} shap card vs cpu {err} > {lim}"
+        print(f"  {policy} shap [N={n}, F={F}, O={O}, {trees} trees]: "
+              f"first {rows} rows against the CPU port, max abs "
+              f"err {err:.3g} (limit {lim:.3g})")
+        arrs = ensemble_to_numpy(learner.ens)
+        x8 = obs[:SHAP_ORACLE_ROWS]
+        np.testing.assert_allclose(phi[:SHAP_ORACLE_ROWS],
+                                   H.ensemble_shap_values(cfg, arrs, x8),
+                                   **ORACLE_TOL)
+        for t in oracle_trees:
+            np.testing.assert_allclose(card.tree_shap(t, x8),
+                                       H.tree_shap_values(cfg, arrs, t, x8),
+                                       **ORACLE_TOL)
+        print(f"  {policy} shap and tree_shap {oracle_trees} on "
+              f"{SHAP_ORACLE_ROWS} rows against the host recursion: within "
+              f"rtol {ORACLE_TOL['rtol']}, atol {ORACLE_TOL['atol']}")
+        key = ("oblivious_leaf_sum" if policy == "oblivious"
+               else "weighted_leaf_sum")
+        cap = learner.ens.capacity
+        unit = (torch.arange(cap, device=dev) < trees).float()[:, None]
+        before = K.launch_counts[key]
+        raw = weighted_leaf_sum(cfg, learner.ens, obs_dev,
+                                unit.expand(cap, O).contiguous())
+        torch.cuda.synchronize()
+        assert K.launch_counts[key] == before + 1, f"{key} not launched"
+        raw = raw.cpu().numpy().astype(np.float64)
+        lhs = phi.astype(np.float64).sum(axis=1) + expected_raw(
+            arrs, DEPTH, trees)
+        atol = ORACLE_TOL["atol"] * max(1.0, np.abs(raw).max())
+        np.testing.assert_allclose(lhs, raw, rtol=ORACLE_TOL["rtol"],
+                                   atol=atol)
+        print(f"  {policy} local accuracy on {n} rows, sum_f phi + E_raw "
+              f"against the raw leaf sum ({key}, unit coefficients): max "
+              f"abs err {np.abs(lhs - raw).max():.3g} (rtol "
+              f"{ORACLE_TOL['rtol']}, atol {atol:.3g})")
+        refc = card.shap(obs[:SHAP_REF_ROWS], ref_compat=True)
+        assert np.array_equal(refc, cpu.shap(obs[:SHAP_REF_ROWS],
+                                             ref_compat=True))
+        print(f"  {policy} shap(ref_compat=True) on {SHAP_REF_ROWS} rows: "
+              f"bit-equal to the CPU port")
+        # -- SHAP's cost
+        print(f"  {policy} shap time [N={n}, {trees} trees]: host obs "
+              f"{host_ms(lambda: card.shap(obs), SHAP_CALLS, 2)}; card obs "
+              f"{host_ms(lambda: card.shap(obs_dev), SHAP_CALLS, 2)}")
+        half = ActorCritic.load_learner(snap, device="cuda")
+        assert half.get_num_trees() == trees // 2
+        syncs = [sync_count(lambda m=m: m.shap(obs_dev)) for m in (half, card)]
+        print(f"  {policy} host syncs per shap call (card obs): "
+              f"{syncs[0]} at {trees // 2} trees, {syncs[1]} at {trees}")
+        assert syncs[0] == syncs[1], syncs
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        card.shap(obs_dev)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        print(f"  {policy} shap peak device memory: "
+              f"{peak / 2**20:.1f} MiB allocated at the peak, "
+              f"{(peak - base) / 2**20:.1f} MiB of it the call's own")
+        profile_requests(lambda: card.shap(obs_dev), n=1, what="shap call")
+        # -- export: a float header built on the host against the card
+        t0 = time.perf_counter()
+        rt = CompiledModel.from_learner(learner)
+        build_s = time.perf_counter() - t0
+        want = learner.predict_async(obs)
+        host = rt(obs)
+        want = want.cpu().numpy()
+        err = np.abs(host - want).max()
+        lim = EXPORT_RTOL * max(1.0, np.abs(want).max())
+        assert err <= lim, f"{policy} compiled header {err} > {lim}"
+        print(f"  {policy} export + CompiledModel build {build_s:.2f} s; "
+              f"host predict on {n} rows against the card's "
+              f"({key}): max abs err {err:.3g} (limit {lim:.3g})")
+        texts = []
+        for m in (card, cpu):
+            buf = io.StringIO()
+            with ctx.redirect_stdout(buf):
+                m.print_tree(0)
+            texts.append(buf.getvalue())
+        assert texts[0] == texts[1] and texts[0].startswith("Tree 0")
+        plot = os.path.join(tmp, f"{policy}_tree")
+        card.plot_tree(0, plot)
+        made = [p for p in (plot + ".png", plot + ".dot")
+                if os.path.exists(p)]
+        assert made, "plot_tree wrote no file"
+        print(f"  {policy} print_tree(0) equal to the CPU port's "
+              f"({len(texts[0].splitlines())} lines); plot_tree wrote "
+              f"{os.path.basename(made[0])}")
+        # -- the reference format round trip on the card
+        ref = os.path.join(tmp, f"{policy}.ref")
+        learner.save_reference_format(ref)
+        back = load_reference_model(ref, device="cuda")
+        assert back.ens.feat.device == learner.ens.feat.device
+        check_close(f"{policy} reference round trip predict ({key})",
+                    back.predict_async(obs), learner.predict_async(obs))
+        sb = back.shap(obs)
+        err = np.abs(sb - phi).max()
+        lim = SHAP_RTOL * np.abs(phi).max() + SHAP_ATOL
+        assert err <= lim, f"{policy} reference round trip shap {err}"
+        print(f"  {policy} reference round trip shap (imported counts are "
+              f"path probabilities): max abs err {err:.3g} (limit "
+              f"{lim:.3g})")
+    # -- a mixed model: more categorical than numeric columns
+    fn, fc = MIXED_F
+    X = np.empty((n, fn + fc), dtype=object)
+    X[:, :fn] = rng.normal(size=(n, fn)).astype(np.float32)
+    X[:, fn:] = rng.choice(["a", "b", "c", "d", "e"], (n, fc))
+    mixed = GBTModel(dict(max_depth=DEPTH, n_bins=N_BINS), fn + fc, O,
+                     dict(algo="SGD", lr=0.1, start_idx=0, stop_idx=O),
+                     device="cuda")
+    for _ in range(MIXED_TREES):
+        mixed.step(X, grads=rng.normal(size=(n, O)).astype(np.float32))
+    path = os.path.join(tmp, "mixed")
+    mixed.save_learner(path)
+    twin = GBTModel.load_learner(path, device="cpu")
+    got = mixed.shap(X[:rows])
+    want = twin.shap(X[:rows])
+    err = np.abs(got - want).max()
+    lim = SHAP_RTOL * np.abs(want).max() + SHAP_ATOL
+    assert got.shape == (rows, fn + fc, O) and err <= lim, (got.shape, err)
+    print(f"  mixed GBTModel (F = {fn} numeric + {fc} categorical, "
+          f"{MIXED_TREES} trees) shap on {rows} rows against the "
+          f"CPU port: max abs err {err:.3g} (limit {lim:.3g})")
+    # -- profiling: one traced shap call
+    trace_dir = os.path.join(tmp, "trace")
+    with profiling.trace(trace_dir):
+        with profiling.annotate("shap"):
+            card.shap(obs_dev)
+        torch.cuda.synchronize()
+    files = [f for f in os.listdir(trace_dir)
+             if f.endswith(".pt.trace.json")]
+    assert len(files) == 1, files
+    with open(os.path.join(trace_dir, files[0])) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    assert kernels, "the trace names no CUDA kernel"
+    assert any(e.get("name") == "shap" for e in events), "no annotation"
+    print(f"  profiling.trace: {files[0]} names {len(kernels)} CUDA "
+          f"kernels and the 'shap' annotation")
+    torch.cuda.synchronize()
+    launches = dict(K.launch_counts)
+    print(f"  launch counts over phase 15: {launches_of(launches)}")
+    for name in ("bucketize", "level_histogram", "level_score",
+                 "weighted_leaf_sum", "oblivious_leaf_sum"):
+        assert launches[name] > 0, f"{name} was not launched in phase 15"
+    print(f"  phase 15 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def phase_predict_times(rng, dev, kernel_args: dict, launches: dict,
                         errs: dict) -> list:
     """Phase 5, kernels: K4 and K5 at the serving shape (greedy for K4,
@@ -2365,6 +2661,11 @@ def main() -> int:
                 e[f"{label}_shape"] = ph["times"][e["name"]]
             e[f"{label}_launches"] = {path: c[e["name"]]
                                       for path, c in ph["launches"].items()}
+    # explaining and exporting ensembles grown on the card: K1-K3 grow
+    # them, K4 / K5 give the predictions they are held against
+    explain = phase_explain(dev, args.seed, smi)
+    for e in kernels:
+        e["explain_launches"] = explain[e["name"]]
 
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -11,7 +11,13 @@ through the K1-K3 fit kernels (``csrc/fit.cu``) or, on the whole-tree path
 kernels (``csrc/predict.cu``), all wrapped in ``ops/kernels.py``.  ``rl``
 trains PPO, A2C, AWR and SAC on the card, their rollouts served by host
 mirrors of the ensembles (``utils/host_mirror.py``, ``csrc/mirror.c``).
-SHAP and export come with later slices (ROADMAP.md).
+The learners explain an ensemble with TreeSHAP on its device
+(``ops/shap_device.py``; ``ref_compat=True`` for the reference's values on
+the host), print and plot its trees, export it as a C header served by a
+native runtime (``utils/c_export.py``, ``utils/c_runtime.py``), and write
+and read the reference's binary format (``utils/reference_export.py``,
+``utils/reference_import.py``).  Multi-process training (``parallel``)
+comes with a later slice (ROADMAP.md).
 """
 import torch as _torch
 

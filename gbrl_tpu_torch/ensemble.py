@@ -135,6 +135,12 @@ def ensemble_to_numpy(ens: Ensemble) -> Dict[str, np.ndarray]:
     return {f: getattr(ens, f).detach().cpu().numpy() for f in FIELDS}
 
 
+def host_arrays(ens) -> Dict[str, np.ndarray]:
+    """An ``Ensemble``'s fields copied to the host in one go (one copy per
+    field, never per tree); a dict of numpy arrays is returned as it is."""
+    return ens if isinstance(ens, dict) else ensemble_to_numpy(ens)
+
+
 def ensemble_from_numpy(arrs: Dict[str, np.ndarray],
                         device: str = "cuda") -> Ensemble:
     """Inverse of ``ensemble_to_numpy`` (also takes the JAX package's dict)."""

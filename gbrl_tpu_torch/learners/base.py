@@ -13,12 +13,6 @@ from ..common.utils import NumericalData, resolve_device
 from ..config import TreeConfig, tree_config_from_dicts
 
 
-def not_ported(what: str, slice_name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to gbrl_tpu_torch yet: it comes with "
-        f"{slice_name} (see ROADMAP.md); use gbrl_tpu for it meanwhile")
-
-
 class BaseLearner(ABC):
     def __init__(self, input_dim: int, output_dim: int, tree_struct: Dict,
                  optimizers: Union[Dict, List[Dict], None],

@@ -5,9 +5,10 @@ Owns one ``Ensemble`` of torch tensors on ``device``, fits trees into it
 (``step``: one boosting iteration on per-sample gradients; ``fit``: the
 supervised loop; ``distil``) and serves predictions from it.  Checkpoints
 are the JAX package's ``.gbrl_model`` format (npz with a JSON ``__meta__``),
-so a checkpoint crosses between the two packages in both directions.  SHAP,
-tree printing, export and the reference-format writer come with later
-slices (ROADMAP.md) and raise ``NotImplementedError`` here.
+so a checkpoint crosses between the two packages in both directions.  SHAP
+runs on the ensemble's device (``ops/shap_device.py``); tree printing, the
+C-header export and the reference-format writer read the ensemble on the
+host (``utils/``).
 """
 from __future__ import annotations
 
@@ -25,8 +26,13 @@ from ..ensemble import (FIELDS, Ensemble, ensemble_from_numpy,
                         ensemble_to_numpy, ensure_capacity, init_ensemble)
 from ..ops.boosting import boost_step, fit_loop, predict_sgd
 from ..ops.predict import single_tree_leaf_values, weighted_leaf_sum
+from ..ops.shap_device import ensemble_shap_device
+from ..ops.shap_refcompat import ensemble_shap_ref_compat
 from ..optimizers import OptimizerSpec, adam_delta, scheduler_lr, sgd_coeff
-from .base import BaseLearner, not_ported
+from ..utils import introspection
+from ..utils.c_export import export_ensemble_header
+from ..utils.reference_export import export_reference_model
+from .base import BaseLearner
 
 SAVE_SUFFIX = ".gbrl_model"
 # new trees since a cached prediction that are evaluated one by one; more
@@ -450,26 +456,11 @@ class GBTLearner(BaseLearner):
 
     def get_metadata(self) -> Dict:
         """Metadata dict (analog of binding.cpp get_metadata:309-328)."""
-        c = self.cfg
-        n = self.get_num_trees()
-        return dict(
-            input_dim=c.input_dim, output_dim=c.output_dim,
-            policy_dim=c.policy_dim, max_depth=c.max_depth,
-            min_data_in_leaf=c.min_data_in_leaf, n_bins=c.n_bins,
-            par_th=c.par_th, cv_beta=c.cv_beta,
-            split_score_func=c.split_score_func,
-            generator_type=c.generator_type,
-            use_control_variates=c.use_control_variates,
-            batch_size=c.batch_size, grow_policy=c.grow_policy,
-            n_trees=n, n_leaves=n * c.n_leaves, iteration=n)
+        return introspection.get_ensemble_metadata(self.cfg, self.ens)
 
     def get_ensemble_data(self) -> Dict[str, np.ndarray]:
         """The fitted trees' SoA arrays as numpy (binding.cpp:330-390)."""
-        n = self.get_num_trees()
-        data = {f: getattr(self.ens, f)[:n].cpu().numpy()
-                for f in FIELDS if f not in ("bias", "n_trees")}
-        data.update(bias=self.get_bias(), n_trees=n)
-        return data
+        return introspection.get_ensemble_data(self.cfg, self.ens)
 
     def set_device(self, device) -> None:
         """Moves the ensemble's tensors to ``device`` ("cpu" / "cuda"); the
@@ -491,24 +482,56 @@ class GBTLearner(BaseLearner):
               f"cv={c.use_control_variates}")
 
     def print_tree(self, tree_idx: int) -> None:
-        raise not_ported("print_tree", "the utils slice")
+        print(introspection.format_tree(self.cfg, self.ens, tree_idx))
 
     def plot_tree(self, tree_idx: int, filename: str) -> None:
-        raise not_ported("plot_tree", "the utils slice")
+        introspection.plot_tree(self.cfg, self.ens, tree_idx, filename)
 
-    def tree_shap(self, tree_idx: int, features, ref_compat: bool = False):
-        raise not_ported("tree_shap", "the SHAP slice")
+    def _shap(self, features, ref_compat: bool,
+              tree_idx: Optional[int]) -> np.ndarray:
+        Xn, Xc = self._prepare(features, grow_vocab=False)
+        if ref_compat:
+            return ensemble_shap_ref_compat(
+                self.cfg, self.ens, Xn.cpu().numpy(),
+                None if Xc is None else Xc.cpu().numpy(), tree_idx=tree_idx)
+        return ensemble_shap_device(self.cfg, self.ens, Xn, Xc,
+                                    self.input_dim, tree_idx).cpu().numpy()
 
-    def shap(self, features, ref_compat: bool = False):
-        raise not_ported("shap", "the SHAP slice")
+    def tree_shap(self, tree_idx: int, features,
+                  ref_compat: bool = False) -> np.ndarray:
+        """SHAP values of one tree [N, input_dim, output_dim], computed on
+        the ensemble's device (the reference is CPU-only here,
+        gbrl.cpp:1271-1278).
+
+        ``ref_compat=True`` instead reproduces the reference C++
+        implementation bit-for-bit on the host, including its
+        nearest-ancestor convention for repeated path features, which
+        deviates from exact Shapley (see ops/shap_refcompat.py)."""
+        return self._shap(features, ref_compat, tree_idx)
+
+    def shap(self, features, ref_compat: bool = False) -> np.ndarray:
+        """Ensemble SHAP values [N, input_dim, output_dim].
+
+        Default: exact path-dependent TreeSHAP on the ensemble's device
+        (matches brute-force Shapley enumeration and the ``shap`` package's
+        TreeExplainer semantics).  ``ref_compat=True`` reproduces the
+        reference C++ outputs exactly (ops/shap_refcompat.py)."""
+        return self._shap(features, ref_compat, None)
 
     def export(self, filename: str, modelname: Optional[str] = None,
                export_format: str = "float",
                export_type: str = "full") -> None:
-        raise not_ported("export", "the utils slice")
+        """Self-contained C-header inference export (types.cpp:409-676);
+        export_type 'compact' emits per-level tables for oblivious trees
+        (types.h:170-174)."""
+        export_ensemble_header(self.cfg, self.ens, filename,
+                               modelname or "gbrl_model", self.specs,
+                               export_format, export_type, self.vocab)
 
     def save_reference_format(self, filename: str) -> None:
-        raise not_ported("save_reference_format", "the utils slice")
+        """Write a reference-compatible binary .gbrl_model
+        (utils/reference_export.py; the bytes of the JAX package's writer)."""
+        export_reference_model(self, filename)
 
     # ------------------------------------------------------------- checkpoint
     def save(self, filename: str) -> None:

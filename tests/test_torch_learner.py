@@ -198,8 +198,7 @@ REF_CLASSES = [("learners.base", "BaseLearner"),
 @pytest.mark.parametrize("module,name", REF_CLASSES)
 def test_public_methods_exist_on_port(module, name):
     """Every public method of the JAX package's class has a method of that
-    name on the port's counterpart (those of later slices raise the named
-    not-ported error rather than AttributeError)."""
+    name on the port's counterpart."""
     import importlib
     ref = getattr(importlib.import_module(f"gbrl_tpu.{module}"), name)
     port = getattr(importlib.import_module(f"gbrl_tpu_torch.{module}"), name)
@@ -284,21 +283,3 @@ def test_set_device_moves_the_ensembles():
     model.set_device("cpu")
     assert model.get_device() == "cpu"
     assert model.learner.ens.feat.device.type == "cpu"
-
-
-def test_later_slice_methods_raise_not_ported():
-    """The methods of the SHAP and utils slices raise the port's named
-    not-ported error on the multi-learner, the model facades and the
-    learner's reference-format writer."""
-    _, tm, X, _ = _multi_pair()
-    pol, val = _opts("SGD")
-    model = ActorCritic(_struct("greedy"), F, O, dict(pol), dict(val),
-                        device="cpu")
-    calls = [lambda: tm.print_tree(0), lambda: tm.plot_tree(0, "t"),
-             lambda: tm.tree_shap(0, X), lambda: tm.shap(X),
-             lambda: model.print_tree(0), lambda: model.plot_tree(0, "t"),
-             lambda: model.tree_shap(0, X), lambda: model.shap(X),
-             lambda: tm.learners[0].save_reference_format("m")]
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="not ported"):
-            call()
