@@ -102,6 +102,27 @@ Phases (any failure raises; the script then exits nonzero):
              categorical columns) against its twin; one ``shap`` call
              under ``profiling.trace`` naming CUDA kernels and the
              ``annotate`` span.
+  16 parallel  data-parallel training over torch.distributed: (a) two gloo
+             ranks (subprocesses of this script, CUDA tensors) share the
+             card and train one PPO actor-critic at
+             examples/multihost_ppo.py's width (per rank 8 ``VecCartPole``
+             envs x 128 steps served by a host mirror, GAE on the local
+             slice, a global plan from a shared seed,
+             ``hosts.host_ppo_update`` with minibatches of 256 and 4
+             epochs: 32 trees a phase; depth 4, 64 bins), 3 iterations per
+             tree path: both ranks' ensembles bit-identical after every
+             iteration, each iteration's trees against one process running
+             ``ppo_update_loop`` on the card over both rollouts, launches
+             per rank and phase asserted (K1 = 32, K2 = K3 = 128 or
+             K6 = 32, K4 = 1), phase p50 / p90 per rank beside the single
+             process, syncs, collectives, a profiled phase; (b) the
+             supervised steps at the bench shape over the two ranks (20
+             ``host_train_step`` + 2 ``host_boost_step`` per grow policy,
+             K1 = 1, K2 = K3 = 4 a step asserted) against one process's
+             ``boost_step`` sequence on the card, K6 with sharded samples
+             raising; (c) the same steps through an NCCL group of one,
+             bit-equal to the single-process card path, 0 host syncs a
+             step.
 
 Without a CUDA device it exits nonzero before printing any result.  It
 prints, before the last line, the nvidia-smi name/power-limit line and one
@@ -2458,10 +2479,625 @@ def phase_predict_times(rng, dev, kernel_args: dict, launches: dict,
     return entries
 
 
+# ============================================================ parallel
+# phase 16: data-parallel training over torch.distributed, two ranks that
+# share the one card.  (a) examples/multihost_ppo.py's width: per rank 8
+# envs x 128 steps (2048 rows over both ranks), minibatches of 256, 4 epochs
+# -> 32 trees a phase; F = 4, O = 3, depth 4, 64 bins, greedy, cosine, SGD
+# lr 0.17 / 0.01; 3 iterations on each tree path.  (b) the supervised steps
+# at the bench shape (N = 4096 over both ranks, F = 16, O = 3, depth 4, 256
+# quantile bins, cosine), 20 train steps per grow policy then 2 boost steps.
+# (c) the same steps through an NCCL group of one.
+PAR_WORLD = 2
+PAR_ENVS, PAR_STEPS, PAR_BATCH, PAR_EPOCHS = 8, 128, 256, 4
+PAR_BINS, PAR_ITERS = 64, 3
+PAR_ROWS = PAR_WORLD * PAR_ENVS * PAR_STEPS
+PAR_TREES = PAR_EPOCHS * PAR_ROWS // PAR_BATCH
+PAR_TIMED = 6           # timed update phases per rank and path (p50 / p90)
+PAR_SUP_STEPS, PAR_SUP_BOOSTS = 20, 2
+PAR_TIMEOUT = 400       # seconds the ranks may take together
+# tests/test_parallel_rl.py:70-74 and tests/test_multihost.py:101-113
+PAR_LEAF_TOL = dict(rtol=1e-5, atol=1e-6)
+PAR_THR_TOL = dict(rtol=1e-6, atol=1e-7)
+# a collective's row in a torch.profiler table
+COLLECTIVE_KEYS = ("all_reduce", "allreduce", "all_gather", "allgather",
+                   "broadcast", "gloo", "nccl")
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def par_ppo_setup():
+    """examples/multihost_ppo.py's trees, optimizers and PPO constants."""
+    from gbrl_tpu_torch.config import TreeConfig
+    from gbrl_tpu_torch.optimizers import OptimizerSpec
+    cfg = TreeConfig(input_dim=4, output_dim=3, n_num_features=4,
+                     max_depth=DEPTH, n_bins=PAR_BINS, grow_policy="greedy",
+                     split_score_func="cosine")
+    specs = (OptimizerSpec(algo="SGD", init_lr=0.17, start_idx=0, stop_idx=2),
+             OptimizerSpec(algo="SGD", init_lr=0.01, start_idx=2, stop_idx=3))
+    return cfg, specs, ppo_hyper()
+
+
+def par_plan(seed: int, it: int):
+    """The global minibatch plan of iteration ``it``, drawn from a seed
+    every rank shares (examples/multihost_ppo.py)."""
+    prng = np.random.default_rng(seed * 100_003 + it)
+    U = PAR_EPOCHS * (PAR_ROWS // PAR_BATCH)
+    mb_idx = np.zeros((U, PAR_BATCH), np.int64)
+    u = 0
+    for _ in range(PAR_EPOCHS):
+        perm = prng.permutation(PAR_ROWS)
+        for start in range(0, PAR_ROWS, PAR_BATCH):
+            mb_idx[u] = perm[start:start + PAR_BATCH]
+            u += 1
+    return mb_idx, np.full(U, PAR_BATCH, np.int64)
+
+
+def par_rollout(mirror, envs, obs, dones, rng, A: int = 2, gamma=0.99,
+                lam=0.95):
+    """One rollout of this rank's envs served by the host mirror, then GAE
+    on the local slice (examples/multihost_ppo.py).  Returns the flat
+    rollout (X, actions, log-probs, advantages, returns, valid) and the
+    envs' next observations and done flags."""
+    S, E = PAR_STEPS, envs.num_envs
+    O_b = np.zeros((S, E, 4), np.float32)
+    A_b = np.zeros((S, E), np.int64)
+    R_b, D_b, V_b, LP_b = (np.zeros((S, E), np.float32) for _ in range(4))
+    for t in range(S):
+        preds = mirror.predict(obs.astype(np.float32))
+        logits = preds[:, :A] - preds[:, :A].max(axis=1, keepdims=True)
+        logp = logits - np.log(np.exp(logits).sum(1, keepdims=True))
+        acts = (rng.random(E)[:, None] >= np.cumsum(np.exp(logp), axis=1)
+                ).sum(1)
+        np.clip(acts, 0, A - 1, out=acts)
+        O_b[t], A_b[t], D_b[t], V_b[t] = obs, acts, dones, preds[:, A]
+        LP_b[t] = np.take_along_axis(logp, acts[:, None], 1)[:, 0]
+        obs, rew, term, trunc, _ = envs.step(acts)
+        R_b[t] = rew
+        dones = np.logical_or(term, trunc).astype(np.float32)
+    nv = mirror.predict(obs.astype(np.float32))[:, A]
+    nnt = 1.0 - dones
+    adv = np.zeros_like(R_b)
+    gae = np.zeros(E, np.float32)
+    for t in reversed(range(S)):
+        delta = R_b[t] + gamma * nv * nnt - V_b[t]
+        gae = delta + gamma * lam * nnt * gae
+        adv[t] = gae
+        nv, nnt = V_b[t], 1.0 - D_b[t]
+    flat = (O_b.reshape(-1, 4), A_b.reshape(-1), LP_b.reshape(-1),
+            adv.reshape(-1), (adv + V_b).reshape(-1), 1.0 - D_b.reshape(-1))
+    return flat, obs, dones
+
+
+def ens_digest(arrs: dict) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for k in sorted(arrs):
+        h.update(np.ascontiguousarray(arrs[k]).tobytes())
+    return h.hexdigest()
+
+
+def phase_profile(fn) -> dict:
+    """One torch.profiler window over ``fn``: device busy ms, the memcpy
+    rows' device ms, and the collectives' host ms (the largest CPU total
+    among rows named like a collective; gloo runs them on the host)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    avgs = prof.key_averages()
+    coll = [e for e in avgs if any(k in e.key.lower() for k in COLLECTIVE_KEYS)]
+    return dict(
+        wall_ms=wall, busy_ms=sum(dev_us(e) for e in avgs) / 1e3,
+        memcpy_ms=sum(dev_us(e) for e in avgs if "memcpy" in e.key.lower())
+        / 1e3,
+        collective_host_ms=max((e.cpu_time_total for e in coll), default=0.0)
+        / 1e3,
+        collective_device_ms=sum(dev_us(e) for e in coll) / 1e3,
+        collective_rows={e.key[:40]: e.count for e in coll})
+
+
+def rank_ppo(mesh, seed: int, out: dict) -> dict:
+    """Phase 16(a) on one rank: PAR_ITERS iterations of rollout (host
+    mirror), GAE, global plan and ``hosts.host_ppo_update`` on each tree
+    path; then PAR_TIMED timed update phases and one profiled.  Writes each
+    iteration's rollout, the ensemble before it and after it into ``out``;
+    returns the per-phase launch counts, syncs, collectives, digests and
+    times."""
+    import torch
+    from types import SimpleNamespace
+    from gbrl_tpu_torch.ensemble import (ensemble_to_numpy, ensure_capacity,
+                                         init_ensemble)
+    from gbrl_tpu_torch.ops import kernels as K
+    from gbrl_tpu_torch.parallel import hosts
+    from gbrl_tpu_torch.utils.host_mirror import HostMirror
+    cfg, specs, hp = par_ppo_setup()
+    fw = np.ones(4, np.float32)
+    res = {}
+    for path in ("level", "k6"):
+        r = res[path] = dict(launches=[], syncs=[], collectives=[],
+                             digests=[], times_ms=[])
+        with tree_path(path == "k6"):
+            ens = hosts.replicate(mesh, ensure_capacity(
+                init_ensemble(cfg, 64, "cpu"), PAR_ITERS * PAR_TREES))
+            shim = SimpleNamespace(cfg=cfg, specs=specs, ens=ens,
+                                   _rl_host_n_trees=0)
+            mirror = HostMirror(shim)
+            envs = VecCartPole(PAR_ENVS)
+            obs, _ = envs.reset(seed=seed + 100 * mesh.rank)
+            dones = np.zeros(PAR_ENVS, np.float32)
+            rng = np.random.default_rng(seed * 977 + mesh.rank)
+            nt = 0
+            for it in range(PAR_ITERS):
+                flat, obs, dones = par_rollout(mirror, envs, obs, dones, rng)
+                mb_idx, mb_n = par_plan(seed, it)
+                key = f"{path}_{it}"
+                for name, a in zip(("X", "act", "logp", "adv", "ret",
+                                    "valid"), flat):
+                    out[f"{key}_{name}"] = a
+                out.update({f"{key}_pre_{k}": v
+                            for k, v in ensemble_to_numpy(ens).items()})
+                # the closure keeps this iteration's state: the timed and
+                # profiled phases below repeat the last one
+                pre, got, nt0 = ens, [], nt
+                K.reset_launch_counts()
+                c0 = mesh.collectives
+
+                def update():
+                    got.append(hosts.host_ppo_update(
+                        cfg, hp, mesh, pre, flat[0], mb_idx, mb_n, flat[1],
+                        flat[2], flat[3], flat[4], specs, fw,
+                        valid_local=flat[5], n_trees0=nt0)[0])
+                r["syncs"].append(sync_count(update))
+                torch.cuda.synchronize()
+                r["launches"].append(dict(K.launch_counts))
+                r["collectives"].append(mesh.collectives - c0)
+                ens = got[0]
+                nt = nt0 + len(mb_n)
+                post = ensemble_to_numpy(ens)
+                r["digests"].append(ens_digest(post))
+                out.update({f"{key}_post_{k}": v for k, v in post.items()})
+                shim.ens, shim._rl_host_n_trees = ens, nt
+                mirror.sync()
+            for _ in range(PAR_TIMED):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                update()
+                torch.cuda.synchronize()
+                r["times_ms"].append((time.perf_counter() - t0) * 1e3)
+            r["profile"] = phase_profile(update)
+        r["updates"] = len(mb_n)
+    return res
+
+
+def rank_supervised(mesh, seed: int, out: dict) -> dict:
+    """Phase 16(b) on one rank: ``hosts.host_train_step`` x PAR_SUP_STEPS
+    then ``host_boost_step`` x PAR_SUP_BOOSTS per grow policy from this
+    rank's half of the data; then K6 asked for with samples over both ranks
+    must raise."""
+    import torch
+    from gbrl_tpu_torch.ensemble import ensemble_to_numpy, init_ensemble
+    from gbrl_tpu_torch.ops import kernels as K
+    from gbrl_tpu_torch.parallel import hosts
+    X, y, g, specs = par_sup_data(seed)
+    n = len(X) // mesh.world
+    sl = slice(mesh.rank * n, (mesh.rank + 1) * n)
+    fw = np.ones(F, np.float32)
+    res = {}
+    for policy in ("greedy", "oblivious"):
+        cfg = fit_config(F, DEPTH, policy)
+        r = res[policy] = dict(launches=[], syncs=[], times_ms=[])
+        ens = hosts.replicate(mesh, init_ensemble(cfg, 32, "cpu"))
+        losses = []
+        for s in range(PAR_SUP_STEPS + PAR_SUP_BOOSTS):
+            K.reset_launch_counts()
+            got = []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if s < PAR_SUP_STEPS:
+                got.append(hosts.host_train_step(cfg, mesh, ens, X[sl], y[sl],
+                                                 fw, specs))
+                ens, loss = got[0]
+                losses.append(loss)
+            else:
+                ens = hosts.host_boost_step(cfg, mesh, ens, X[sl], g[sl], fw)
+            torch.cuda.synchronize()
+            r["times_ms"].append((time.perf_counter() - t0) * 1e3)
+            r["launches"].append(dict(K.launch_counts))
+        arrs = ensemble_to_numpy(ens)
+        r["digest"] = ens_digest(arrs)
+        r["losses"] = torch.stack(losses).cpu().tolist()
+        out.update({f"sup_{policy}_{k}": v for k, v in arrs.items()})
+        with tree_path(True):
+            try:
+                hosts.host_boost_step(cfg, mesh, ens, X[sl], g[sl], fw)
+                r["k6_raised"] = ""
+            except ValueError as e:
+                r["k6_raised"] = str(e)
+    return res
+
+
+def par_sup_data(seed: int):
+    """The supervised data of phase 16(b)-(c): N = 4096 normal observations,
+    linear targets, random gradients; SGD lr 0.1 on every output."""
+    from gbrl_tpu_torch.optimizers import OptimizerSpec
+    rng = np.random.default_rng(seed + 16)
+    X = rng.normal(size=(N, F)).astype(np.float32)
+    W = rng.normal(size=(F, O)).astype(np.float32)
+    y = (X @ W + 0.1 * rng.normal(size=(N, O))).astype(np.float32)
+    g = rng.normal(size=(N, O)).astype(np.float32)
+    return X, y, g, (OptimizerSpec(algo="SGD", init_lr=0.1, start_idx=0,
+                                   stop_idx=O),)
+
+
+def rank_worker(args) -> int:
+    """One rank of phase 16 (``--rank``): joins the gloo group on the card,
+    runs 16(a) and 16(b), writes rank<r>.npz / rank<r>.json into
+    ``--out``."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke rank: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from gbrl_tpu_torch.parallel import hosts
+    torch.set_num_threads(2)
+    hosts.initialize(f"127.0.0.1:{args.port}", args.world, args.rank,
+                     backend="gloo", device="cuda")
+    mesh = hosts.global_mesh()
+    assert (mesh.rank, mesh.world, mesh.backend) == (args.rank, args.world,
+                                                     "gloo")
+    out = {}
+    res = dict(ppo=rank_ppo(mesh, args.seed, out),
+               supervised=rank_supervised(mesh, args.seed, out))
+    np.savez(os.path.join(args.out, f"rank{args.rank}.npz"), **out)
+    with open(os.path.join(args.out, f"rank{args.rank}.json"), "w") as f:
+        json.dump(res, f)
+    hosts.shutdown()
+    return 0
+
+
+def spawn_ranks(seed: int, tmp: str) -> list:
+    """Start PAR_WORLD rank processes of this script (subprocesses: the
+    parent already holds a CUDA context), wait for all of them, and kill
+    every one still running on a failure or past PAR_TIMEOUT.  Returns
+    each rank's (json, npz)."""
+    port = free_port()
+    procs, logs = [], []
+    try:
+        for r in range(PAR_WORLD):
+            logs.append(open(os.path.join(tmp, f"rank{r}.log"), "w"))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--rank", str(r),
+                 "--world", str(PAR_WORLD), "--port", str(port), "--out",
+                 tmp, "--seed", str(seed)], stdout=logs[-1],
+                stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + PAR_TIMEOUT
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    for r, p in enumerate(procs):
+        with open(os.path.join(tmp, f"rank{r}.log")) as f:
+            log = f.read()
+        assert p.returncode == 0, f"rank {r} failed ({p.returncode}):\n" \
+            + log[-4000:]
+    res = []
+    for r in range(PAR_WORLD):
+        with open(os.path.join(tmp, f"rank{r}.json")) as f:
+            res.append((json.load(f), dict(np.load(
+                os.path.join(tmp, f"rank{r}.npz")))))
+    return res
+
+
+def assert_leaves_close(label: str, got: dict, want: dict, a: int, b: int,
+                        thr_tol: dict) -> None:
+    """Trees [a, b): structure equal, thresholds within ``thr_tol``, leaves
+    within PAR_LEAF_TOL, elementwise."""
+    for k in ("feat", "is_split"):
+        assert np.array_equal(got[k][a:b], want[k][a:b]), f"{label}: {k}"
+    np.testing.assert_allclose(got["thr"][a:b], want["thr"][a:b],
+                               err_msg=f"{label}: thr", **thr_tol)
+    np.testing.assert_allclose(got["leaf_values"][a:b],
+                               want["leaf_values"][a:b],
+                               err_msg=f"{label}: leaf values",
+                               **PAR_LEAF_TOL)
+
+
+def sub_dict(npz: dict, prefix: str) -> dict:
+    return {k[len(prefix):]: v for k, v in npz.items() if k.startswith(prefix)}
+
+
+def par_check_ppo(dev, seed: int, ranks: list) -> dict:
+    """Phase 16(a)'s checks in the parent: both ranks' ensembles equal
+    after every iteration; each iteration's trees against one process
+    running ``ppo_update_loop`` on the card over both ranks' rollouts
+    concatenated; launches per rank and phase; the single-process phase's
+    p50 / p90 beside the ranks'.  Returns the launches per path and the
+    last phase's inputs (the ensemble before it, the concatenated rollout
+    on the card, the plan, the tree count)."""
+    import torch
+    from gbrl_tpu_torch.ensemble import ensemble_from_numpy, ensemble_to_numpy
+    from gbrl_tpu_torch.rl import jit_update as JU
+    cfg, specs, hp = par_ppo_setup()
+    fw = torch.ones(4, device=dev)
+    (r0, n0), (r1, n1) = ranks
+    launches = {}
+    for path in ("level", "k6"):
+        k6 = path == "k6"
+        a, b = r0["ppo"][path], r1["ppo"][path]
+        assert a["digests"] == b["digests"], f"{path}: ranks' ensembles differ"
+        U = a["updates"]
+        assert U == PAR_TREES, U
+        want = dict(bucketize=U, level_histogram=0 if k6 else DEPTH * U,
+                    level_score=0 if k6 else DEPTH * U,
+                    tree_build=U if k6 else 0, weighted_leaf_sum=1,
+                    oblivious_leaf_sum=0)
+        for r, res in enumerate((a, b)):
+            for it, c in enumerate(res["launches"]):
+                assert c == want, f"{path} rank {r} iteration {it}: {c}"
+        launches[path] = want
+        ref_times, syncs_ref = [], None
+        for it in range(PAR_ITERS):
+            key = f"{path}_{it}_"
+            roll = [np.concatenate([n0[key + c], n1[key + c]])
+                    for c in ("X", "act", "logp", "adv", "ret", "valid")]
+            t = [torch.from_numpy(x).to(dev) for x in roll]
+            mb_idx, mb_n = par_plan(seed, it)
+            mbd = torch.from_numpy(mb_idx).to(dev)
+            pre = ensemble_from_numpy(sub_dict(n0, key + "pre_"), "cuda")
+            nt0 = it * U
+
+            def single():
+                return JU.ppo_update_loop(
+                    cfg, hp, U, pre, t[0], mbd, mb_n.tolist(), t[1], t[2],
+                    t[3], t[4], specs, fw, nt0, t[5])[0]
+            with tree_path(k6), recorded_fits(JU) as fits:
+                ref = ensemble_to_numpy(single())
+            post = sub_dict(n0, key + "post_")
+            verdict = compare_phase(f"16a {path} iteration {it}", cfg, ref,
+                                    post, fits, nt0, U)
+            if verdict.startswith("all"):
+                assert_leaves_close(f"16a {path} iteration {it}", post, ref,
+                                    nt0, nt0 + U, dict(rtol=0, atol=0))
+            print(f"  16a {path} path iteration {it}: ranks' ensembles "
+                  f"bit-identical (sha256 {a['digests'][it][:12]}); "
+                  f"against one process over both rollouts: {verdict}")
+            if it == PAR_ITERS - 1:
+                with tree_path(k6):
+                    syncs_ref = sync_count(single)
+                    for _ in range(PAR_TIMED):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        single()
+                        torch.cuda.synchronize()
+                        ref_times.append((time.perf_counter() - t0) * 1e3)
+        for r, res in enumerate((a, b)):
+            p50, p90 = np.percentile(res["times_ms"], [50, 90])
+            pr = res["profile"]
+            print(f"  16a {path} rank {r}: update phase p50 {p50:.4f} ms p90 "
+                  f"{p90:.4f} ms (n={len(res['times_ms'])}); host syncs "
+                  f"{res['syncs']} (sync debug mode), collectives "
+                  f"{res['collectives']} per phase; launches {res['launches'][0]}")
+            print(f"    profiled phase: wall {pr['wall_ms']:.3f} ms, device "
+                  f"busy {pr['busy_ms']:.3f} ms, memcpy {pr['memcpy_ms']:.3f}"
+                  f" ms ({100 * pr['memcpy_ms'] / max(pr['busy_ms'], 1e-9):.1f}"
+                  f"% of busy), collectives on the host "
+                  f"{pr['collective_host_ms']:.3f} ms "
+                  f"({pr['collective_host_ms'] / U:.4f} ms a minibatch), on "
+                  f"the device {pr['collective_device_ms']:.3f} ms; rows "
+                  f"{pr['collective_rows']}")
+        p50, p90 = np.percentile(ref_times, [50, 90])
+        print(f"  16a {path} one process on the card, both rollouts "
+              f"({PAR_ROWS} rows): p50 {p50:.4f} ms p90 {p90:.4f} ms "
+              f"(n={PAR_TIMED}); host syncs {syncs_ref} in ppo_update_loop")
+    # the last level-path phase's inputs, for 16(c)
+    return launches, (pre, t, mbd, mb_n, nt0)
+
+
+def par_single_train(cfg, mesh, X, y, g, specs, dev, record: bool = False):
+    """One process's boosting sequence on the card over all N rows: 20
+    predict -> MultiRMSE -> boost steps then 2 boost steps, through
+    ``sharded_train_step`` / ``sharded_boost_step`` when ``mesh`` is given,
+    else through ``ops.boosting`` directly.  Returns (ensemble, losses,
+    recorded fit inputs)."""
+    import torch
+    from gbrl_tpu_torch.ensemble import init_ensemble
+    from gbrl_tpu_torch.ops import boosting as BO
+    from gbrl_tpu_torch.ops.loss import multirmse_grads
+    from gbrl_tpu_torch.parallel import sharded
+    Xt, yt, gt = (torch.from_numpy(a).to(dev) for a in (X, y, g))
+    fw = torch.ones(F, device=dev)
+    w = torch.ones(len(X), device=dev)
+    ens = init_ensemble(cfg, 32, "cuda")
+    losses = []
+    rec = recorded_fits(BO) if record else contextlib.nullcontext([])
+    with rec as fits:
+        for s in range(PAR_SUP_STEPS + PAR_SUP_BOOSTS):
+            if s >= PAR_SUP_STEPS:
+                ens = (BO.boost_step(cfg, ens, Xt, gt, fw) if mesh is None
+                       else sharded.sharded_boost_step(cfg, mesh, ens, Xt,
+                                                       gt, fw))
+            elif mesh is None:
+                preds = BO.predict_sgd(cfg, ens, Xt, specs, 0, ens.n_trees)
+                grads, loss = multirmse_grads(preds, yt, w)
+                ens = BO.boost_step(cfg, ens, Xt, grads, fw)
+                losses.append(loss)
+            else:
+                ens, loss = sharded.sharded_train_step(cfg, mesh, ens, Xt, yt,
+                                                       fw, specs)
+                losses.append(loss)
+    return ens, torch.stack(losses), fits
+
+
+def par_check_supervised(dev, seed: int, ranks: list) -> dict:
+    """Phase 16(b)'s checks in the parent: both ranks equal; launches per
+    step; K6 raised; the ranks' trees and losses against one process's
+    boost_step sequence on the card.  Returns the launches per step."""
+    from gbrl_tpu_torch.ensemble import ensemble_to_numpy
+    X, y, g, specs = par_sup_data(seed)
+    (r0, n0), (r1, n1) = ranks
+    launches = {}
+    for policy in ("greedy", "oblivious"):
+        cfg = fit_config(F, DEPTH, policy)
+        a, b = r0["supervised"][policy], r1["supervised"][policy]
+        assert a["digest"] == b["digest"], f"16b {policy}: ranks differ"
+        assert a["losses"] == b["losses"], f"16b {policy}: losses differ"
+        pk = "oblivious_leaf_sum" if policy == "oblivious" else \
+            "weighted_leaf_sum"
+        for r, res in enumerate((a, b)):
+            assert "whole-tree path (K6)" in res["k6_raised"], \
+                f"16b {policy} rank {r}: K6 with sharded samples did not raise"
+            for s, c in enumerate(res["launches"]):
+                step = s < PAR_SUP_STEPS
+                want = dict(bucketize=1, level_histogram=DEPTH,
+                            level_score=DEPTH, tree_build=0,
+                            weighted_leaf_sum=int(step and pk ==
+                                                  "weighted_leaf_sum"),
+                            oblivious_leaf_sum=int(step and pk ==
+                                                   "oblivious_leaf_sum"))
+                assert c == want, f"16b {policy} rank {r} step {s}: {c}"
+        launches[policy] = a["launches"][0]
+        ref, losses, fits = par_single_train(cfg, None, X, y, g, specs, dev,
+                                             record=True)
+        ref = ensemble_to_numpy(ref)
+        got = sub_dict(n0, f"sup_{policy}_")
+        n = PAR_SUP_STEPS + PAR_SUP_BOOSTS
+        verdict = compare_phase(f"16b {policy}", cfg, ref, got, fits, 0, n)
+        if verdict.startswith("all"):
+            assert_leaves_close(f"16b {policy}", got, ref, 0, n, PAR_THR_TOL)
+            np.testing.assert_allclose(a["losses"], losses.cpu().numpy(),
+                                       rtol=1e-5, atol=1e-6)
+        for r, res in enumerate((a, b)):
+            ts = res["times_ms"][2:PAR_SUP_STEPS]
+            p50, p90 = np.percentile(ts, [50, 90])
+            print(f"  16b {policy} rank {r}: host_train_step p50 {p50:.4f} ms "
+                  f"p90 {p90:.4f} ms (n={len(ts)}); launches a step "
+                  f"{res['launches'][0]}")
+        print(f"  16b {policy}: ranks bit-identical, K6 raised on both; "
+              f"against one process's boost_step sequence: {verdict}; "
+              f"losses {a['losses'][0]:.5f} -> {a['losses'][-1]:.5f}")
+    return launches
+
+
+def par_nccl_one(dev, seed: int, ppo_args) -> dict:
+    """Phase 16(c): the supervised steps and the last PPO phase of 16(a)
+    through an NCCL group of one, bit-equal to the single-process card
+    path, with 0 host syncs in a step and in ``sharded_ppo_update``.
+    Returns the launches per train step."""
+    import torch
+    import torch.distributed as dist
+    from gbrl_tpu_torch.ensemble import ensemble_to_numpy
+    from gbrl_tpu_torch.ops import kernels as K
+    from gbrl_tpu_torch.parallel import sharded, sharded_rl
+    from gbrl_tpu_torch.rl import jit_update as JU
+    X, y, g, specs = par_sup_data(seed)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        mesh = sharded.make_mesh(device=dev)
+        assert (mesh.world, mesh.backend) == (1, "nccl")
+        launches = {}
+        for policy in ("greedy", "oblivious"):
+            cfg = fit_config(F, DEPTH, policy)
+            a, la, _ = par_single_train(cfg, mesh, X, y, g, specs, dev)
+            b, lb, _ = par_single_train(cfg, None, X, y, g, specs, dev)
+            xa, xb = ensemble_to_numpy(a), ensemble_to_numpy(b)
+            for k in xa:
+                assert np.array_equal(xa[k], xb[k], equal_nan=True), \
+                    f"16c {policy}: {k} differs from the single-process path"
+            assert torch.equal(la, lb), f"16c {policy}: losses differ"
+            Xt, yt = (torch.from_numpy(v).to(dev) for v in (X, y))
+            fw = torch.ones(F, device=dev)
+            K.reset_launch_counts()
+            c0 = mesh.collectives
+            syncs = sync_count(lambda: sharded.sharded_train_step(
+                cfg, mesh, a, Xt, yt, fw, specs))
+            torch.cuda.synchronize()
+            launches[policy] = dict(K.launch_counts)
+            assert syncs == 0, f"16c {policy}: {syncs} host syncs in a step"
+            print(f"  16c {policy}: NCCL group of one, {PAR_SUP_STEPS} train "
+                  f"+ {PAR_SUP_BOOSTS} boost steps bit-equal to the "
+                  f"single-process card path (every field and loss); one "
+                  f"step: {syncs} host syncs, {mesh.collectives - c0} "
+                  f"collectives, launches {launches[policy]}")
+        pcfg, pspecs, hp = par_ppo_setup()
+        pre, t, mbd, mb_n, nt0 = ppo_args
+        fw = torch.ones(4, device=dev)
+
+        def ppo(fn, *a):
+            return fn(pcfg, hp, *a)[0]
+        a = ensemble_to_numpy(ppo(
+            sharded_rl.sharded_ppo_update, mesh, pre, t[0], mbd, mb_n, t[1],
+            t[2], t[3], t[4], pspecs, fw, t[5], nt0))
+        b = ensemble_to_numpy(ppo(
+            JU.ppo_update_loop, len(mb_n), pre, t[0], mbd, mb_n.tolist(),
+            t[1], t[2], t[3], t[4], pspecs, fw, nt0, t[5]))
+        for k in a:
+            assert np.array_equal(a[k], b[k], equal_nan=True), \
+                f"16c PPO: {k} differs from ppo_update_loop"
+        c0 = mesh.collectives
+        syncs = sync_count(lambda: sharded_rl.sharded_ppo_update(
+            pcfg, hp, mesh, pre, t[0], mbd, mb_n, t[1], t[2], t[3], t[4],
+            pspecs, fw, t[5], nt0))
+        assert syncs == 0, f"16c PPO: {syncs} host syncs in the phase"
+        print(f"  16c PPO: sharded_ppo_update over the NCCL group of one "
+              f"({len(mb_n)} trees, level path) bit-equal to "
+              f"ppo_update_loop; {syncs} host syncs, "
+              f"{mesh.collectives - c0} collectives")
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
+def phase_parallel(dev, seed: int, smi: str) -> dict:
+    """Phase 16: data-parallel training over torch.distributed.  Returns
+    the launches per kernel: per rank and PPO phase on each path, per
+    supervised step per policy (gloo ranks and the NCCL group of one)."""
+    print(f"[16 parallel] {smi}", flush=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = spawn_ranks(seed, tmp)
+    print(f"  {PAR_WORLD} gloo ranks on the card (CUDA tensors) ran 16a-16b "
+          f"in {time.perf_counter() - t0:.1f} s, spawn included", flush=True)
+    ppo, ppo_args = par_check_ppo(dev, seed, ranks)
+    sup = par_check_supervised(dev, seed, ranks)
+    nccl = par_nccl_one(dev, seed, ppo_args)
+    print(f"  phase 16 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"ppo_" + k: v for k, v in ppo.items()} | {
+        "train_" + k: v for k, v in sup.items()} | {
+        "nccl_one_" + k: v for k, v in nccl.items()}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    # one rank of phase 16 (the script starts these itself)
+    ap.add_argument("--rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--world", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--port", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--out", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.rank is not None:
+        return rank_worker(args)
 
     import torch
     if not torch.cuda.is_available():
@@ -2666,6 +3302,11 @@ def main() -> int:
     explain = phase_explain(dev, args.seed, smi)
     for e in kernels:
         e["explain_launches"] = explain[e["name"]]
+    # data-parallel training: two gloo ranks on the card, an NCCL group of
+    # one; launches per rank and PPO phase, per supervised step
+    par = phase_parallel(dev, args.seed, smi)
+    for e in kernels:
+        e["parallel_launches"] = {k: c[e["name"]] for k, c in par.items()}
 
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -16,8 +16,14 @@ The learners explain an ensemble with TreeSHAP on its device
 the host), print and plot its trees, export it as a C header served by a
 native runtime (``utils/c_export.py``, ``utils/c_runtime.py``), and write
 and read the reference's binary format (``utils/reference_export.py``,
-``utils/reference_import.py``).  Multi-process training (``parallel``)
-comes with a later slice (ROADMAP.md).
+``utils/reference_import.py``).  ``parallel`` trains over
+``torch.distributed``, one process per rank: samples shard over the ranks,
+the ensembles are replicated, K2's histograms (and every other
+cross-sample sum) are summed over the ranks in rank order, so every rank
+ends each step with the same ensemble (``parallel/sharded.py``); the PPO
+and AWR update phases gather each minibatch's rows from their owners
+(``parallel/sharded_rl.py``); ``parallel/hosts.py`` starts a rank from
+explicit arguments or torchrun's variables and takes numpy shards.
 """
 import torch as _torch
 

@@ -119,13 +119,16 @@ def _node_expand(node_rel, build_grads, sample_w, n_nodes) -> torch.Tensor:
 
 
 def _level_histogram(Xb, node_rel, build_grads, sample_w, n_nodes,
-                     n_buckets) -> torch.Tensor:
+                     n_buckets, mesh=None) -> torch.Tensor:
     """Per (feature, node, bucket) gradient sums and counts through K2:
-    -> [F, n_nodes, n_buckets, O+1] (last column = counts)."""
+    -> [F, n_nodes, n_buckets, O+1] (last column = counts), summed over
+    the ranks of ``mesh`` when there is one."""
     F = Xb.shape[1]
     O = build_grads.shape[-1]
     nd = _node_expand(node_rel, build_grads, sample_w, n_nodes)
     hist = level_histogram_cuda(Xb.contiguous(), nd, n_buckets)
+    if mesh is not None:
+        hist = mesh.sum_ranks(hist)
     return hist.reshape(F, n_nodes, O + 1, n_buckets).transpose(2, 3)
 
 
@@ -147,34 +150,39 @@ def _route_level(Xb, Xc, node_rel, do_split, is_num_sel, f_num, b_num,
     return node_rel * 2 + go.to(torch.int32)
 
 
-def _segment_sum(rows: torch.Tensor, seg: torch.Tensor,
-                 n_seg: int) -> torch.Tensor:
+def _segment_sum(rows: torch.Tensor, seg: torch.Tensor, n_seg: int,
+                 mesh=None) -> torch.Tensor:
     """[n_seg, C] sums of rows [N, C] by segment id: a one-hot contraction
-    in float64, rounded once to float32.  Deterministic on every device and
-    untouched by the TF32 matmul setting."""
+    in float64 (summed over the ranks of ``mesh`` when there is one),
+    rounded once to float32.  Deterministic on every device and untouched
+    by the TF32 matmul setting."""
     oh = (seg[:, None] == torch.arange(n_seg, device=seg.device)[None, :])
-    return torch.mm(oh.to(torch.float64).T, rows.to(torch.float64)).to(
-        torch.float32)
+    s = torch.mm(oh.to(torch.float64).T, rows.to(torch.float64))
+    if mesh is not None:
+        s = mesh.sum_ranks(s)
+    return s.to(torch.float32)
 
 
-def _node_stats(node_rel, build_grads, sample_w, n_nodes):
+def _node_stats(node_rel, build_grads, sample_w, n_nodes, mesh=None):
     O = build_grads.shape[-1]
     agg = _segment_sum(_weighted_rows(build_grads, sample_w), node_rel,
-                       n_nodes)
+                       n_nodes, mesh)
     return agg[:, :O], agg[:, O]
 
 
 def _general_level(cfg: TreeConfig, d: int, Xb, Xc, node_rel, build_grads,
                    sample_w, feat_w, cat_valid, feat_w_cat, blocked_num,
-                   blocked_cat, n_nodes: int, F: int, Fc: int, V: int):
+                   blocked_cat, n_nodes: int, F: int, Fc: int, V: int,
+                   mesh=None):
     """One level of the general (categorical) path: adjusted candidate
-    scores [n_nodes, F*B + Fc*V] plus node sums and counts."""
+    scores [n_nodes, F*B + Fc*V] plus node sums and counts (histograms and
+    node sums over every rank of ``mesh``)."""
     B, O = cfg.n_bins, cfg.output_dim
     parts = []
     node_sum = node_cnt = None
     if F > 0:
         hist = _level_histogram(Xb, node_rel, build_grads, sample_w,
-                                n_nodes, B + 1)        # [F, n, B+1, O+1]
+                                n_nodes, B + 1, mesh)  # [F, n, B+1, O+1]
         cs_all = torch.cumsum(hist, dim=2)
         # node totals are any feature's full marginal (feature 0)
         node_sum = cs_all[0, :, B, :O]
@@ -190,8 +198,9 @@ def _general_level(cfg: TreeConfig, d: int, Xb, Xc, node_rel, build_grads,
         parts.append((sc * feat_w[None, :, None]).reshape(n_nodes, F * B))
     if node_sum is None:
         node_sum, node_cnt = _node_stats(node_rel, build_grads, sample_w,
-                                         n_nodes)
-    chist = _level_histogram(Xc, node_rel, build_grads, sample_w, n_nodes, V)
+                                         n_nodes, mesh)
+    chist = _level_histogram(Xc, node_rel, build_grads, sample_w, n_nodes, V,
+                             mesh)
     right_sum, right_cnt = chist[..., :O], chist[..., O]  # right = code match
     left_sum = node_sum[None, :, None, :] - right_sum
     left_cnt = node_cnt[None, :, None] - right_cnt
@@ -211,16 +220,20 @@ def build_tree(cfg: TreeConfig, Xb: Optional[torch.Tensor],
                sample_w: torch.Tensor, feat_w: torch.Tensor,
                Xc: Optional[torch.Tensor] = None,
                cat_valid: Optional[torch.Tensor] = None,
-               feat_w_cat: Optional[torch.Tensor] = None
-               ) -> Dict[str, torch.Tensor]:
+               feat_w_cat: Optional[torch.Tensor] = None,
+               mesh=None) -> Dict[str, torch.Tensor]:
     """Fit one tree (arguments as ``gbrl_tpu.ops.fit.build_tree``).
 
     Xb [N, F] int32 bucket ids in [0, n_bins] (None when all-categorical);
     cand_vals [F, B] ascending thresholds; grads [N, O] raw gradients (leaf
     values); build_grads [N, O] scoring gradients; sample_w [N] 0/1 mask;
     feat_w [F]; Xc [N, Fc] int32 codes (code == c routes right); cat_valid
-    [Fc, V] candidate mask; feat_w_cat [Fc].  Returns a dict of per-tree
-    tensors in heap layout."""
+    [Fc, V] candidate mask; feat_w_cat [Fc].  With a ``mesh``
+    (parallel/sharded.py) the rows are this rank's and every histogram,
+    node sum and leaf sum is summed over the ranks (K2's output between K2
+    and K3 on the level path), so every rank fits the same tree; the
+    whole-tree path (K6) then raises when there is more than one rank.
+    Returns a dict of per-tree tensors in heap layout."""
     has_num = Xb is not None and Xb.shape[1] > 0
     has_cat = Xc is not None and Xc.shape[1] > 0
     N = Xb.shape[0] if has_num else Xc.shape[0]
@@ -248,6 +261,12 @@ def build_tree(cfg: TreeConfig, Xb: Optional[torch.Tensor],
 
     if (has_num and not has_cat and not _DISABLE_FUSED_TREE
             and (1 << (D - 1)) <= NPMAX):
+        if mesh is not None and mesh.world > 1:
+            raise ValueError(
+                "the whole-tree path (K6) fits a tree in one launch and "
+                "cannot sum histograms over ranks between levels; with "
+                f"samples sharded over {mesh.world} ranks set "
+                "ops.fit._DISABLE_FUSED_TREE = True (the level path)")
         return _fused_tree(cfg, Xb, cand_vals, grads, build_grads, sample_w,
                            fw)
 
@@ -257,6 +276,8 @@ def build_tree(cfg: TreeConfig, Xb: Optional[torch.Tensor],
             # level path: K2 then K3
             nd = _node_expand(node_rel, build_grads, sample_w, n_nodes)
             hist = level_histogram_cuda(Xb, nd, B + 1)
+            if mesh is not None:
+                hist = mesh.sum_ranks(hist)     # K2's rows -> global, for K3
             best_idx, best, node_cnt, _, _ = level_score_cuda(
                 hist, blocked_num.contiguous(), fw, B, O, cfg.score,
                 cfg.min_data_in_leaf, cfg.oblivious, d == 0)
@@ -270,7 +291,7 @@ def build_tree(cfg: TreeConfig, Xb: Optional[torch.Tensor],
             adj, node_sum, node_cnt = _general_level(
                 cfg, d, Xb, Xc, node_rel, build_grads, sample_w, feat_w,
                 cat_valid, feat_w_cat, blocked_num, blocked_cat, n_nodes, F,
-                Fc, V)
+                Fc, V, mesh)
             if cfg.oblivious:
                 total = _nan_to_neginf(torch.sum(adj, dim=0))
                 idx = _first_argmax_tol(total)
@@ -335,7 +356,7 @@ def build_tree(cfg: TreeConfig, Xb: Optional[torch.Tensor],
             blocked_cat = (blocked_cat | chosen_c)[rep]
 
     # leaf values = masked mean of raw gradients (fitter.cpp:545-582)
-    leaf = _segment_sum(_weighted_rows(grads, sample_w), node_rel, L)
+    leaf = _segment_sum(_weighted_rows(grads, sample_w), node_rel, L, mesh)
     return _tree_dict(lv_feat, lv_thr, lv_code, lv_split, lv_isnum, lv_cnt,
                       leaf, O, depth_reached)
 
@@ -389,15 +410,23 @@ def _fused_tree(cfg: TreeConfig, Xb, cand_vals, grads, build_grads, sample_w,
                       leaf, O, depth_reached)
 
 
-def standardize_l2(build_grads: torch.Tensor,
-                   sample_w: torch.Tensor) -> torch.Tensor:
+def standardize_l2(build_grads: torch.Tensor, sample_w: torch.Tensor,
+                   mesh=None) -> torch.Tensor:
     """Per-column standardization of the L2 score (fitter.cpp:58-64: center
-    then divide by sqrt(var / (n - 1))); zero-variance columns divide by 1."""
-    n = torch.sum(sample_w)
-    mean = torch.sum(build_grads * sample_w[:, None], dim=0) / torch.clamp(
-        n, min=1.0)
+    then divide by sqrt(var / (n - 1))); zero-variance columns divide by 1.
+    With a ``mesh`` the rows are this rank's and n, the mean and the
+    variance are the global ones."""
+    s = torch.cat([torch.sum(sample_w).reshape(1),
+                   torch.sum(build_grads * sample_w[:, None], dim=0)])
+    if mesh is not None:
+        s = mesh.sum_ranks(s)
+    n = s[0]
+    mean = s[1:] / torch.clamp(n, min=1.0)
     centered = (build_grads - mean[None, :]) * sample_w[:, None]
-    var = torch.sum(centered * centered, dim=0) / torch.clamp(n - 1.0, min=1.0)
+    sq = torch.sum(centered * centered, dim=0)
+    if mesh is not None:
+        sq = mesh.sum_ranks(sq)
+    var = sq / torch.clamp(n - 1.0, min=1.0)
     std = torch.sqrt(var)
     std = torch.where(std > 0, std, torch.ones_like(std))
     return centered / std[None, :]

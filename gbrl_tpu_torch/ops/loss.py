@@ -12,12 +12,16 @@ import torch
 
 
 def multirmse_grads(preds: torch.Tensor, targets: torch.Tensor,
-                    sample_w: torch.Tensor) -> Tuple[torch.Tensor,
-                                                     torch.Tensor]:
-    """Returns (grads [N, O], loss scalar tensor)."""
+                    sample_w: torch.Tensor, mesh=None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (grads [N, O], loss scalar tensor).  With a ``mesh``
+    (parallel/sharded.py) the rows are this rank's and the loss is the
+    global one: sum(g^2) and the row count summed over the ranks."""
     g = (preds - targets) * sample_w[:, None]
-    n = torch.clamp(torch.sum(sample_w), min=1.0)
-    return g, torch.sqrt(0.5 * torch.sum(g * g) / n)
+    s = torch.stack([torch.sum(g * g), torch.sum(sample_w)])
+    if mesh is not None:
+        s = mesh.sum_ranks(s)
+    return g, torch.sqrt(0.5 * s[0] / torch.clamp(s[1], min=1.0))
 
 
 def multirmse_loss(preds: torch.Tensor, targets: torch.Tensor,

@@ -61,60 +61,72 @@ def awr_update_loop(acfg: TreeConfig, ccfg: TreeConfig, hp: AWRHyper,
     (critic_loss_trace, actor_loss_trace)), the traces device tensors."""
     actor_specs, critic_specs = specs
     Kc, Ka = n_updates
-    A = hp.act_dim
-    mb = cmb_idx.shape[1]
     dev = X.device
-
-    # ---- critic: one regression tree per minibatch step
     ctrace = []
     for k in range(Kc):
         idx = cmb_idx[k]
-        Xmb, r = X[idx], rets[idx]
-        v = predict_sgd(ccfg, critic_ens, Xmb, critic_specs, 0,
-                        critic_ens.capacity)[:, 0]
-        g = (v - r)[:, None]          # d/dv[0.5 * mse] * n
-        critic_ens = _boost(ccfg, critic_ens, Xmb, g, feat_w)
-        ctrace.append(0.5 * torch.mean((v - r) ** 2))
-
-    # ---- actor: advantage-weighted regression
+        critic_ens, loss = awr_critic_step(ccfg, critic_specs, critic_ens,
+                                           feat_w, X[idx], rets[idx])
+        ctrace.append(loss)
     atrace = []
-    log_max_w = math.log(hp.max_weight)
     for k in range(Ka):
         idx = amb_idx[k]
-        Xmb, a, adv = X[idx], acts[idx], advs[idx]
-        # population std (ddof 0), as jnp.std and the facade's np.std
-        adv = (adv - torch.mean(adv)) / (torch.std(adv, correction=0) + 1e-8)
-        w = torch.exp(torch.clamp(adv / hp.beta, max=log_max_w))
-        theta = predict_sgd(acfg, actor_ens, Xmb, actor_specs, 0,
-                            actor_ens.capacity)
-        p = theta.detach().requires_grad_(True)
-        with torch.enable_grad():
-            # mu: sigma^2-free weighted regression (the official AWR
-            # implementation's actor loss, arXiv:1910.00177 code):
-            # 0.5 * w * ||a - mu||^2; dividing by sigma^2 makes the
-            # effective boosting step lr * w / sigma^2 > 2 for high-weight
-            # leaves, an oscillating divergence
-            mu = p[:, :A]
-            loss = torch.mean(w * 0.5 * torch.sum((a - mu) ** 2, dim=-1))
-            if hp.learn_std:
-                # sigma: weighted Gaussian MLE with mu stopped, log_std
-                # clipped to [-2.5, 0.5] (zero gradient outside)
-                log_std = clip_as_jax(p[:, A:], -2.5, 0.5)
-                z = (a - mu.detach()) / torch.exp(log_std)
-                loss = loss + torch.mean(
-                    w * torch.sum(log_std + 0.5 * z ** 2, dim=-1))
-            (g,) = torch.autograd.grad(loss, p)
-        g = g * mb
-        if hp.grad_clip:
-            # per-sample L2 clip (reference clip_grad_norm semantics,
-            # gbrl/common/utils.py:270-295): bounds the leaf updates so a
-            # region whose mu drifted cannot inject huge corrections into
-            # neighbouring leaves
-            norms = torch.sqrt(torch.sum(g * g, dim=-1, keepdim=True))
-            g = g * torch.clamp(hp.grad_clip / (norms + 1e-8), max=1.0)
-        actor_ens = _boost(acfg, actor_ens, Xmb, g, feat_w)
-        atrace.append(loss.detach())
+        actor_ens, loss = awr_actor_step(acfg, hp, actor_specs, actor_ens,
+                                         feat_w, X[idx], acts[idx], advs[idx])
+        atrace.append(loss)
     return actor_ens, critic_ens, (_trace(ctrace, dev), _trace(atrace, dev))
+
+
+def awr_critic_step(ccfg: TreeConfig, critic_specs, critic_ens: Ensemble,
+                    feat_w: torch.Tensor, Xmb: torch.Tensor,
+                    r: torch.Tensor):
+    """One critic regression tree on a minibatch (rows already gathered).
+    Returns (critic ensemble, the minibatch's loss)."""
+    v = predict_sgd(ccfg, critic_ens, Xmb, critic_specs, 0,
+                    critic_ens.capacity)[:, 0]
+    g = (v - r)[:, None]          # d/dv[0.5 * mse] * n
+    critic_ens = _boost(ccfg, critic_ens, Xmb, g, feat_w)
+    return critic_ens, 0.5 * torch.mean((v - r) ** 2)
+
+
+def awr_actor_step(acfg: TreeConfig, hp: AWRHyper, actor_specs,
+                   actor_ens: Ensemble, feat_w: torch.Tensor,
+                   Xmb: torch.Tensor, a: torch.Tensor, adv: torch.Tensor):
+    """One advantage-weighted actor tree on a minibatch (rows already
+    gathered).  Returns (actor ensemble, the minibatch's loss)."""
+    A = hp.act_dim
+    mb = Xmb.shape[0]
+    # population std (ddof 0), as jnp.std and the facade's np.std
+    adv = (adv - torch.mean(adv)) / (torch.std(adv, correction=0) + 1e-8)
+    w = torch.exp(torch.clamp(adv / hp.beta, max=math.log(hp.max_weight)))
+    theta = predict_sgd(acfg, actor_ens, Xmb, actor_specs, 0,
+                        actor_ens.capacity)
+    p = theta.detach().requires_grad_(True)
+    with torch.enable_grad():
+        # mu: sigma^2-free weighted regression (the official AWR
+        # implementation's actor loss, arXiv:1910.00177 code):
+        # 0.5 * w * ||a - mu||^2; dividing by sigma^2 makes the effective
+        # boosting step lr * w / sigma^2 > 2 for high-weight leaves, an
+        # oscillating divergence
+        mu = p[:, :A]
+        loss = torch.mean(w * 0.5 * torch.sum((a - mu) ** 2, dim=-1))
+        if hp.learn_std:
+            # sigma: weighted Gaussian MLE with mu stopped, log_std clipped
+            # to [-2.5, 0.5] (zero gradient outside)
+            log_std = clip_as_jax(p[:, A:], -2.5, 0.5)
+            z = (a - mu.detach()) / torch.exp(log_std)
+            loss = loss + torch.mean(
+                w * torch.sum(log_std + 0.5 * z ** 2, dim=-1))
+        (g,) = torch.autograd.grad(loss, p)
+    g = g * mb
+    if hp.grad_clip:
+        # per-sample L2 clip (reference clip_grad_norm semantics,
+        # gbrl/common/utils.py:270-295): bounds the leaf updates so a
+        # region whose mu drifted cannot inject huge corrections into
+        # neighbouring leaves
+        norms = torch.sqrt(torch.sum(g * g, dim=-1, keepdim=True))
+        g = g * torch.clamp(hp.grad_clip / (norms + 1e-8), max=1.0)
+    return _boost(acfg, actor_ens, Xmb, g, feat_w), loss.detach()
 
 
 def run_awr_update(algo, r_obs: np.ndarray, r_act: np.ndarray,

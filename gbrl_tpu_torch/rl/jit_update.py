@@ -119,7 +119,6 @@ def ppo_update_loop(cfg: TreeConfig, hp: PPOHyper, n_updates: int,
     each minibatch, a diagnostic)."""
     dev = X.device
     mb = mb_idx.shape[1]
-    na = hp.n_actions
     preds_full = predict_sgd(cfg, ens, X, specs, 0, n_trees0)
     rows = torch.arange(mb, device=dev)
     ents = []
@@ -129,26 +128,51 @@ def ppo_update_loop(cfg: TreeConfig, hp: PPOHyper, n_updates: int,
         w = (rows < n_u).to(torch.float32)
         if valid is not None:
             w = w * valid[idx]          # autoreset rows (rl/buffers.py flat)
-        Xmb = X[idx]
-        pmb = preds_full[idx]
-        grads = ppo_minibatch_grads(hp, pmb, actions[idx], old_logp[idx],
-                                    adv[idx], ret[idx], w)
-        build = standardize_l2(grads, w) if cfg.score == "l2" else grads
-        cand_vals = _masked_candidates(cfg, Xmb, n_u)
-        tree = build_tree(cfg, bucketize(Xmb, cand_vals), cand_vals, grads,
-                          build, w, feat_w)
-        t_idx = torch.full((), n_trees0 + u, dtype=torch.int32, device=dev)
-        ens = write_tree(ens, tree, t_idx)
-        v_new = single_tree_leaf_values(cfg, tree, X)
-        preds_full = preds_full + _lr_columns(specs, cfg.output_dim,
-                                              t_idx)[None, :] * v_new
-        # mean policy entropy of this minibatch (diagnostic)
-        logp_all = torch.log_softmax(pmb[:, :na], dim=-1)
-        ent = -torch.sum(torch.exp(logp_all) * logp_all, dim=-1)
-        ents.append(torch.sum(ent * w) / torch.clamp(torch.sum(w), min=1.0))
-    ent_trace = (torch.stack(ents) if ents else
-                 torch.zeros((0,), dtype=torch.float32, device=dev))
-    return ens, ent_trace
+        ens, tree, t_idx, ent = ppo_minibatch_step(
+            cfg, hp, specs, feat_w, ens, n_trees0 + u, n_u, w, X[idx],
+            preds_full[idx], actions[idx], old_logp[idx], adv[idx], ret[idx])
+        ents.append(ent)
+        preds_full = preds_full + tree_prediction(cfg, specs, tree, t_idx, X)
+    return ens, entropy_trace(ents, dev)
+
+
+def ppo_minibatch_step(cfg: TreeConfig, hp: PPOHyper,
+                       specs: Tuple[OptimizerSpec, ...],
+                       feat_w: torch.Tensor, ens: Ensemble, t: int, n_u: int,
+                       w: torch.Tensor, Xmb: torch.Tensor, pmb: torch.Tensor,
+                       act: torch.Tensor, old_logp: torch.Tensor,
+                       adv: torch.Tensor, ret: torch.Tensor):
+    """One minibatch of the update phase, its rows already gathered: PPO
+    gradients from the predictions ``pmb`` -> candidates (K1) -> one tree
+    written at index ``t`` (a host int).  Returns (ensemble, tree, the tree
+    index as a device tensor, the minibatch's mean policy entropy)."""
+    grads = ppo_minibatch_grads(hp, pmb, act, old_logp, adv, ret, w)
+    build = standardize_l2(grads, w) if cfg.score == "l2" else grads
+    cand_vals = _masked_candidates(cfg, Xmb, n_u)
+    tree = build_tree(cfg, bucketize(Xmb, cand_vals), cand_vals, grads,
+                      build, w, feat_w)
+    t_idx = torch.full((), t, dtype=torch.int32, device=Xmb.device)
+    ens = write_tree(ens, tree, t_idx)
+    # mean policy entropy of this minibatch (diagnostic)
+    logp_all = torch.log_softmax(pmb[:, :hp.n_actions], dim=-1)
+    ent = -torch.sum(torch.exp(logp_all) * logp_all, dim=-1)
+    return (ens, tree, t_idx,
+            torch.sum(ent * w) / torch.clamp(torch.sum(w), min=1.0))
+
+
+def tree_prediction(cfg: TreeConfig, specs: Tuple[OptimizerSpec, ...],
+                    tree: dict, t_idx: torch.Tensor,
+                    X: torch.Tensor) -> torch.Tensor:
+    """The new tree's SGD contribution to the predictions of the rows X
+    (leaf values are immutable once fit)."""
+    v_new = single_tree_leaf_values(cfg, tree, X)
+    return _lr_columns(specs, cfg.output_dim, t_idx)[None, :] * v_new
+
+
+def entropy_trace(ents: list, dev: torch.device) -> torch.Tensor:
+    """[U] per-minibatch entropies (empty when no minibatch ran)."""
+    return (torch.stack(ents) if ents else
+            torch.zeros((0,), dtype=torch.float32, device=dev))
 
 
 def minibatch_plan(n: int, n_epochs: int, batch_size: int, rng):

@@ -594,3 +594,54 @@ def test_failing_launch_raises_without_fallback(cuda_device, monkeypatch,
     with pytest.raises(RuntimeError, match="CUDA error 1"):
         calls[entry]()
     assert K.launch_counts == before
+
+
+@pytest.mark.parametrize("policy", ["greedy", "oblivious"])
+def test_nccl_group_of_one_bit_equal(cuda_device, policy):
+    """Supervised train and boost steps through an NCCL group of one
+    (``parallel.sharded``) are bit-equal to the single-process card path:
+    every field of the ensemble and every loss."""
+    import socket
+    import torch.distributed as dist
+    from gbrl_tpu_torch.config import TreeConfig
+    from gbrl_tpu_torch.ensemble import ensemble_to_numpy, init_ensemble
+    from gbrl_tpu_torch.ops import boosting as BO
+    from gbrl_tpu_torch.ops.loss import multirmse_grads
+    from gbrl_tpu_torch.optimizers import OptimizerSpec
+    from gbrl_tpu_torch.parallel import sharded
+    rng = np.random.default_rng(3)
+    N, F, O = 2048, 8, 3
+    X, y, g = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(
+        cuda_device) for s in ((N, F), (N, O), (N, O)))
+    cfg = TreeConfig(input_dim=F, output_dim=O, n_num_features=F,
+                     max_depth=4, n_bins=64, grow_policy=policy,
+                     split_score_func="l2", use_control_variates=True)
+    specs = (OptimizerSpec(algo="SGD", init_lr=0.1, start_idx=0,
+                           stop_idx=O),)
+    fw, w = torch.ones(F, device=cuda_device), torch.ones(N, device=cuda_device)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    try:
+        mesh = sharded.make_mesh(device=cuda_device)
+        assert (mesh.world, mesh.backend) == (1, "nccl")
+        a = b = init_ensemble(cfg, 16, "cuda")
+        for step in range(8):
+            if step < 6:
+                a, la = sharded.sharded_train_step(cfg, mesh, a, X, y, fw,
+                                                   specs)
+                preds = BO.predict_sgd(cfg, b, X, specs, 0, b.n_trees)
+                grads, lb = multirmse_grads(preds, y, w)
+                b = BO.boost_step(cfg, b, X, grads, fw)
+                assert torch.equal(la, lb), step
+            else:
+                a = sharded.sharded_boost_step(cfg, mesh, a, X, g, fw)
+                b = BO.boost_step(cfg, b, X, g, fw)
+        assert mesh.collectives > 0
+    finally:
+        dist.destroy_process_group()
+    xa, xb = ensemble_to_numpy(a), ensemble_to_numpy(b)
+    for k in xa:
+        np.testing.assert_array_equal(xa[k], xb[k], err_msg=k)
