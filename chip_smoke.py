@@ -123,6 +123,14 @@ Phases (any failure raises; the script then exits nonzero):
              raising; (c) the same steps through an NCCL group of one,
              bit-equal to the single-process card path, 0 host syncs a
              step.
+  17 api     the public names the port added last: a shared and a separate
+             ActorCritic per grow policy at full width (200 trees), written
+             by the CPU port and loaded on the card: ``get_num_trees``,
+             requests, ``SeparateActorCriticLearner.predict``,
+             ``save_learner`` from the card loaded back on the CPU,
+             ``chunk_leaf_indices`` and ``tree_shap_device_one`` against the
+             CPU; every request on fresh rows, K4 and K5 launched once
+             per learner a request reaches (11 each), no fit kernel.
 
 Without a CUDA device it exits nonzero before printing any result.  It
 prints, before the last line, the nvidia-smi name/power-limit line and one
@@ -2479,6 +2487,158 @@ def phase_predict_times(rng, dev, kernel_args: dict, launches: dict,
     return entries
 
 
+# ============================================================ api
+# phase 17 serves full width (F, O, depth) with fewer trees than phase 4,
+# so that the CPU port it is held against answers in a few seconds
+API_ROWS = 1024         # observations per request
+API_TREES, API_CAPACITY = 200, 256
+
+
+def api_models(rng, policy: str, tmp: str):
+    """A shared and a separate ActorCritic built on the CPU port at full
+    width, their ensembles synthetic (API_TREES in API_CAPACITY), each
+    written with ``save_learner``; returns the checkpoint paths."""
+    from gbrl_tpu_torch import ActorCritic
+    from gbrl_tpu_torch.ensemble import ensemble_from_numpy
+    pol = dict(algo="SGD", init_lr=0.05, start_idx=0, stop_idx=O - 1)
+    val = dict(algo="SGD", init_lr=0.1, start_idx=O - 1, stop_idx=O)
+    paths = {}
+    for shared in (True, False):
+        model = ActorCritic(dict(max_depth=DEPTH, grow_policy=policy), F, O,
+                            dict(pol), dict(val), shared_tree_struct=shared,
+                            device="cpu")
+        learners = ([model.learner] if shared else model.learner.learners)
+        for lr, o in zip(learners, (O,) if shared else (O - 1, 1)):
+            lr.set_feature_mapping(np.ones(F, bool))
+            lr.ens = ensemble_from_numpy(synthetic_ensemble(
+                rng, policy, capacity=API_CAPACITY, n_trees=API_TREES, o=o),
+                device="cpu")
+        paths[shared] = os.path.join(tmp, f"{policy}_{shared}")
+        model.save_learner(paths[shared])
+    return paths
+
+
+def phase_api(dev, seed: int) -> dict:
+    """Phase 17: the public names the port added last, on the card against
+    the CPU port.  Per grow policy, a shared and a separate ActorCritic at
+    full width (F = 16, O = 3, depth 4; 200 trees) written by the CPU port
+    are loaded on the card: ``get_num_trees``; requests; the separate
+    learner's ``predict`` (both models, each alone, a tree range);
+    ``save_learner`` from the card, loaded back on the CPU and asked again;
+    ``chunk_leaf_indices`` over every tree slot equal to the CPU's;
+    ``tree_shap_device_one`` for one tree.  Every request gets fresh rows,
+    so none is served from the learner's cache.  Launch counts are set to 0
+    before and read after: each request launches its policy's leaf sum (K4
+    greedy, K5 oblivious) once per learner it reaches, 11 per policy, and
+    no fit kernel runs.  Returns the launch counts."""
+    import torch
+    from gbrl_tpu_torch import ActorCritic
+    from gbrl_tpu_torch.config import TreeConfig
+    from gbrl_tpu_torch.ensemble import ensemble_from_numpy
+    from gbrl_tpu_torch.ops import kernels as K
+    from gbrl_tpu_torch.ops.predict import chunk_leaf_indices
+    from gbrl_tpu_torch.ops.shap_device import tree_shap_device_one
+    print("[17 api]", flush=True)
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed + 17)
+
+    def serve(card_fn, cpu_fn, *args, **kwargs):
+        """card_fn and cpu_fn on the same fresh rows; the CPU's output is
+        moved to the card."""
+        obs = rng.normal(size=(API_ROWS, F)).astype(np.float32)
+        a, b = card_fn(obs, *args, **kwargs), cpu_fn(obs, *args, **kwargs)
+        if isinstance(b, tuple):
+            return a, tuple(x.to(dev) for x in b)
+        return a, b.to(dev)
+
+    want = {name: 0 for name in PREDICT_KERNELS}
+    K.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        for policy in ("greedy", "oblivious"):
+            key = ("oblivious_leaf_sum" if policy == "oblivious"
+                   else "weighted_leaf_sum")
+            paths = api_models(rng, policy, tmp)
+            for shared, path in paths.items():
+                label = f"{policy} {'shared' if shared else 'separate'}"
+                card = ActorCritic.load_learner(path, device="cuda")
+                cpu = ActorCritic.load_learner(path, device="cpu")
+                want_trees = API_TREES if shared else (API_TREES,
+                                                       API_TREES)
+                assert card.get_num_trees() == cpu.get_num_trees() == \
+                    want_trees, (label, card.get_num_trees())
+                # every card call gets rows of its own: a repeated host
+                # input would be served from the learner's cache and
+                # launch nothing
+                for a, b, what in zip(*serve(card, cpu),
+                                      ("policy", "value")):
+                    assert a.device.type == "cuda"
+                    check_close(f"{label} {what}", a, b)
+                if not shared:
+                    lr, lc = card.learner, cpu.learner
+                    for a, b in zip(*serve(lr.predict, lc.predict)):
+                        check_close(f"{label} predict", a, b)
+                    for idx in (0, 1):
+                        check_close(f"{label} predict model_idx={idx}",
+                                    *serve(lr.predict, lc.predict,
+                                           model_idx=idx))
+                    check_close(f"{label} predict trees [50, 150)",
+                                *serve(lr.predict, lc.predict, True, 50,
+                                       150, model_idx=0))
+                again = path + "_from_card"
+                card.save_learner(again)
+                back = ActorCritic.load_learner(again, device="cpu")
+                assert back.get_num_trees() == want_trees
+                for a, b, what in zip(*serve(card, back),
+                                      ("policy", "value")):
+                    check_close(f"{label} {what} after save_learner", a, b)
+                # one leaf sum per learner a call reaches: the shared model
+                # 2 calls x 1; the separate 2 calls x 2, the learner's
+                # predict 2 + 1 + 1 + 1
+                want[key] += 2 if shared else 9
+            # leaf indices and one tree's SHAP from the greedy / oblivious
+            # ensemble's arrays, on the card against the CPU
+            arrs = synthetic_ensemble(rng, policy, capacity=API_CAPACITY,
+                                      n_trees=API_TREES)
+            arrs["counts"] = rng.integers(1, 100, arrs["counts"].shape
+                                          ).astype(np.float32)
+            ens = {d: ensemble_from_numpy(arrs, d) for d in ("cuda", "cpu")}
+            X = rng.normal(size=(API_ROWS, F)).astype(np.float32)
+            Xd = {"cuda": torch.from_numpy(X).to(dev),
+                  "cpu": torch.from_numpy(X)}
+            idx = {d: chunk_leaf_indices(
+                e.feat, e.thr, e.cat_code, e.is_split, e.is_numeric, Xd[d],
+                None, DEPTH) for d, e in ens.items()}
+            assert idx["cuda"].device.type == "cuda"
+            assert torch.equal(idx["cuda"].cpu(), idx["cpu"]), \
+                f"{policy}: chunk_leaf_indices differ on the card"
+            print(f"  {policy} chunk_leaf_indices [{API_ROWS} x "
+                  f"{API_CAPACITY}] equal to the CPU's")
+            cfg = TreeConfig(input_dim=F, output_dim=O, n_num_features=F,
+                             max_depth=DEPTH, grow_policy=policy)
+            t = 7
+            phi = {d: tree_shap_device_one(
+                cfg, e.feat[t], e.thr[t], e.cat_code[t], e.is_split[t],
+                e.is_numeric[t], e.counts[t], e.leaf_values[t], Xd[d], None,
+                F) for d, e in ens.items()}
+            err = (phi["cuda"].cpu() - phi["cpu"]).abs().max().item()
+            lim = SHAP_RTOL * phi["cpu"].abs().max().item() + SHAP_ATOL
+            assert phi["cuda"].device.type == "cuda" and err <= lim, \
+                f"{policy} tree_shap_device_one: {err} > {lim}"
+            print(f"  {policy} tree_shap_device_one (tree {t}): max abs err "
+                  f"{err:.3g} (limit {lim:.3g})")
+    torch.cuda.synchronize()
+    launches = dict(K.launch_counts)
+    print(f"  launch counts over phase 17: {launches_of(launches)}")
+    for name in PREDICT_KERNELS:
+        assert launches[name] == want[name], \
+            f"{name}: {launches[name]} launches in phase 17, {want[name]} " \
+            "requests reached it"
+    fits = {k: v for k, v in launches.items() if k not in PREDICT_KERNELS}
+    assert not any(fits.values()), f"a fit kernel ran in phase 17: {fits}"
+    print(f"  phase 17 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 # ============================================================ parallel
 # phase 16: data-parallel training over torch.distributed, two ranks that
 # share the one card.  (a) examples/multihost_ppo.py's width: per rank 8
@@ -3307,6 +3467,10 @@ def main() -> int:
     par = phase_parallel(dev, args.seed, smi)
     for e in kernels:
         e["parallel_launches"] = {k: c[e["name"]] for k, c in par.items()}
+    # the public names the port added last, against the CPU port
+    api = phase_api(dev, args.seed)
+    for e in kernels:
+        e["api_launches"] = api[e["name"]]
 
     print(smi)
     print(json.dumps({"kernels": kernels}))

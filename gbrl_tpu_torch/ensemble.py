@@ -14,7 +14,7 @@ routes right (reference node.cpp:77-96).  Capacity grows geometrically.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Any, Dict
 
 import numpy as np
 import torch
@@ -132,7 +132,12 @@ def ensure_capacity(ens: Ensemble, needed: int) -> Ensemble:
 
 def ensemble_to_numpy(ens: Ensemble) -> Dict[str, np.ndarray]:
     """The same dict as ``gbrl_tpu.ensemble.ensemble_to_numpy``."""
-    return {f: getattr(ens, f).detach().cpu().numpy() for f in FIELDS}
+    return {f: v.detach().cpu().numpy() for f, v in vars_dict(ens).items()}
+
+
+def vars_dict(ens: Ensemble) -> Dict[str, Any]:
+    """The ensemble's fields by name, as tensors on its device."""
+    return {f: getattr(ens, f) for f in FIELDS}
 
 
 def host_arrays(ens) -> Dict[str, np.ndarray]:

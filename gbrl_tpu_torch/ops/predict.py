@@ -77,6 +77,15 @@ def chunk_leaf_rel(feat, thr, cat_code, is_split, is_numeric,
     return p - IN
 
 
+def chunk_leaf_indices(feat, thr, cat_code, is_split, is_numeric,
+                       Xn: torch.Tensor, Xc: Optional[torch.Tensor],
+                       max_depth: int) -> torch.Tensor:
+    """The JAX package's name for ``chunk_leaf_rel``: [N, C] leaf indices
+    of a chunk of trees, on the tensors' device."""
+    return chunk_leaf_rel(feat, thr, cat_code, is_split, is_numeric, Xn, Xc,
+                          max_depth)
+
+
 def _leaf_gather(lv: torch.Tensor, rel: torch.Tensor) -> torch.Tensor:
     """lv [C, L, O], rel [N, C] -> lv[c, rel[n, c], :] as [N, C, O]."""
     return lv[torch.arange(lv.shape[0], device=lv.device)[None, :], rel]

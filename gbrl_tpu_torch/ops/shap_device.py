@@ -85,12 +85,12 @@ def _lookup(k: torch.Tensor, row: List[float]) -> torch.Tensor:
 
 
 class _Statics:
-    """The sample-independent part of a call, for trees ``[t0, t1)`` of the
-    ensemble: heap paths, per-slot validity, features and edge weights after
+    """The sample-independent part of a call, for the ensemble's first
+    ``n_trees`` trees: heap paths, per-slot validity, features and edge weights after
     the duplicate fold, the fold's masks in order, and the subset
     coefficients ``coef[(subset, j)] = W[|S|, k] * ok * prod cold``."""
 
-    def __init__(self, cfg: TreeConfig, ens: Ensemble, t0: int, t1: int,
+    def __init__(self, cfg: TreeConfig, ens: Ensemble, n_trees: int,
                  n_num: int):
         D = cfg.max_depth
         L = 1 << D
@@ -103,10 +103,10 @@ class _Statics:
         self.right = [((leaf >> (D - 1 - d)) & 1).bool() for d in range(D)]
         child = [2 * self.node[d] + 1 + self.right[d].long()
                  for d in range(D)]
-        feat = ens.feat[t0:t1, :P]
-        is_split = ens.is_split[t0:t1, :P]
-        is_num = ens.is_numeric[t0:t1, :P]
-        counts = ens.counts[t0:t1]
+        feat = ens.feat[:n_trees, :P]
+        is_split = ens.is_split[:n_trees, :P]
+        is_num = ens.is_numeric[:n_trees, :P]
+        counts = ens.counts[:n_trees]
         self.valid0 = [is_split[:, self.node[d]] for d in range(D)]  # [T, L]
         valid = list(self.valid0)
         slot, cold = [], []
@@ -158,15 +158,15 @@ class _Statics:
 
 def _chunk_phi(cfg: TreeConfig, ens: Ensemble, st: _Statics, c0: int,
                c1: int, Xn: torch.Tensor, Xc: Optional[torch.Tensor],
-               n_features: int, t_base: int, acc: torch.Tensor) -> None:
-    """Adds the SHAP values of trees [c0, c1) of the statics' range
-    (ensemble trees t_base + c0 ...) to ``acc`` [N, n_features * O]."""
+               n_features: int, acc: torch.Tensor) -> None:
+    """Adds the SHAP values of the ensemble's trees [c0, c1) to ``acc``
+    [N, n_features * O]."""
     D = cfg.max_depth
     L = 1 << D
     P = L - 1
     N = Xn.shape[0]
     T = c1 - c0
-    sl = slice(t_base + c0, t_base + c1)
+    sl = slice(c0, c1)
     # follow-right indicator for every internal node (node.cpp:77-96); each
     # gather's index is clamped to its own block (a categorical node's
     # feature indexes the categorical block and may lie past the numeric
@@ -181,16 +181,15 @@ def _chunk_phi(cfg: TreeConfig, ens: Ensemble, st: _Statics, c0: int,
         xc = Xc[:, f.clamp(max=Xc.shape[1] - 1)]
         go = torch.where(ens.is_numeric[sl, :P], go,
                          xc == ens.cat_code[sl, :P])
-    cs = slice(c0, c1)
-    hot = [(go[:, :, st.node[d]] == st.right[d]) | ~st.valid0[d][cs]
+    hot = [(go[:, :, st.node[d]] == st.right[d]) | ~st.valid0[d][sl]
            for d in range(D)]                                      # [N, T, L]
     for i, j, dup in st.dups:
-        dup = dup[cs]
+        dup = dup[sl]
         hot[i] = hot[i] & (hot[j] | ~dup)
         hot[j] = hot[j] | dup
     # (hot_j - cold_j) * valid_j; the follow-indicators are exact 0/1, so
     # the products below equal the JAX package's float ones
-    diff = [(hot[j].float() - st.cold[j][cs]) * st.validf[j][cs]
+    diff = [(hot[j].float() - st.cold[j][sl]) * st.validf[j][sl]
             for j in range(D)]
     phi = torch.zeros((D, N, T, L), dtype=torch.float32, device=Xn.device)
     for t in range(1 << D):
@@ -202,7 +201,7 @@ def _chunk_phi(cfg: TreeConfig, ens: Ensemble, st: _Statics, c0: int,
         for j in range(D):
             if bits[j]:
                 continue
-            a = st.coef[(t, j)][cs]
+            a = st.coef[(t, j)][sl]
             if hotP is not None:
                 a = torch.where(hotP, a, 0.0)
             phi[j] += a * diff[j]
@@ -211,8 +210,31 @@ def _chunk_phi(cfg: TreeConfig, ens: Ensemble, st: _Statics, c0: int,
     feats = torch.arange(n_features, device=Xn.device)
     lv = ens.leaf_values[sl][:, :, None, :]                       # [T, L, 1, O]
     for j in range(D):
-        M = (st.slot[cs][:, :, j, None] == feats).float()[..., None] * lv
+        M = (st.slot[sl][:, :, j, None] == feats).float()[..., None] * lv
         acc.addmm_(phi[j].reshape(N, T * L), M.reshape(T * L, -1))
+
+
+def tree_shap_device_one(cfg: TreeConfig, feat, thr, code, is_split,
+                         is_numeric, counts, leaf_values, Xn: torch.Tensor,
+                         Xc: Optional[torch.Tensor],
+                         n_features: int) -> torch.Tensor:
+    """SHAP values of one tree given by its heap arrays (``feat`` [NODES],
+    ..., ``counts`` [2L-1], ``leaf_values`` [L, O]): [N, n_features,
+    output_dim] on the tensors' device."""
+    dev = Xn.device
+    O = leaf_values.shape[-1]
+    one = Ensemble(
+        feat=feat[None], thr=thr[None], cat_code=code[None],
+        is_split=is_split[None], is_numeric=is_numeric[None],
+        leaf_values=leaf_values[None], counts=counts[None],
+        depths=torch.zeros(1, dtype=torch.int32, device=dev),
+        bias=torch.zeros(O, dtype=torch.float32, device=dev),
+        n_trees=torch.ones((), dtype=torch.int32, device=dev))
+    acc = torch.zeros((Xn.shape[0], n_features * O), dtype=torch.float32,
+                      device=dev)
+    _chunk_phi(cfg, one, _Statics(cfg, one, 1, Xn.shape[1]), 0, 1, Xn, Xc,
+               n_features, acc)
+    return acc.reshape(Xn.shape[0], n_features, O)
 
 
 def ensemble_shap_device(cfg: TreeConfig, ens: Ensemble, Xn: torch.Tensor,
@@ -227,15 +249,18 @@ def ensemble_shap_device(cfg: TreeConfig, ens: Ensemble, Xn: torch.Tensor,
         if not 0 <= tree_idx < ens.capacity:
             raise IndexError(f"tree_idx {tree_idx} out of range "
                              f"[0, {ens.capacity})")
-        t0, t1 = tree_idx, tree_idx + 1
-    else:
-        t0, t1 = 0, int(ens.n_trees)
+        t = tree_idx
+        return tree_shap_device_one(
+            cfg, ens.feat[t], ens.thr[t], ens.cat_code[t], ens.is_split[t],
+            ens.is_numeric[t], ens.counts[t], ens.leaf_values[t], Xn, Xc,
+            n_features)
+    n_trees = int(ens.n_trees)
     acc = torch.zeros((N, n_features * O), dtype=torch.float32,
                       device=Xn.device)
-    if t1 > t0:
-        st = _Statics(cfg, ens, t0, t1, Xn.shape[1])
-        T_c = chunk_trees(N, cfg.max_depth, t1 - t0, n_features, O)
-        for c0 in range(0, t1 - t0, T_c):
-            _chunk_phi(cfg, ens, st, c0, min(c0 + T_c, t1 - t0), Xn, Xc,
-                       n_features, t0, acc)
+    if n_trees:
+        st = _Statics(cfg, ens, n_trees, Xn.shape[1])
+        T_c = chunk_trees(N, cfg.max_depth, n_trees, n_features, O)
+        for c0 in range(0, n_trees, T_c):
+            _chunk_phi(cfg, ens, st, c0, min(c0 + T_c, n_trees), Xn, Xc,
+                       n_features, acc)
     return acc.reshape(N, n_features, O)

@@ -31,8 +31,8 @@ from ..common.utils import resolve_device
 from ..config import TreeConfig
 from ..ensemble import Ensemble
 from ..optimizers import OptimizerSpec
-from .sharded import (Mesh, make_mesh, replicate, sharded_boost_step,  # noqa: F401
-                      sharded_train_step)
+from . import sharded
+from .sharded import Mesh, make_mesh, sharded_boost_step, sharded_train_step
 from .sharded_rl import sharded_awr_update, sharded_ppo_update
 
 _ENV = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK")
@@ -106,6 +106,10 @@ def host_array(mesh: Mesh, local_data) -> torch.Tensor:
         raise ValueError(f"uneven shards over the ranks: {counts} rows; "
                          "the data must shard evenly")
     return t
+
+
+# every rank starts from rank 0's ensemble: the package's one replicate
+replicate = sharded.replicate
 
 
 def _feat_w(mesh: Mesh, feat_w) -> torch.Tensor:

@@ -56,8 +56,8 @@ def clip_as_jax(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     return torch.minimum(torch.maximum(x, lo_t), hi_t)
 
 
-def q_values(w: torch.Tensor, b: torch.Tensor, a: torch.Tensor,
-             qtype: str) -> torch.Tensor:
+def q_torch(w: torch.Tensor, b: torch.Tensor, a: torch.Tensor,
+            qtype: str) -> torch.Tensor:
     """Q(theta, a) for the parametric forms (rl/sac.q_from_params)."""
     s = torch.sum(w * a, dim=-1)
     if qtype == "linear":
@@ -136,7 +136,7 @@ def sac_train_step(acfg: TreeConfig, ccfg: TreeConfig, hp: SACHyper,
     tqs = []
     for i, ens in enumerate(critic_ens):
         th_t = predict_sgd(ccfg, ens, next_obs, critic_specs, 0, prefixes[i])
-        tqs.append(q_values(*_critic_wb(hp, th_t), na, hp.q_func_type))
+        tqs.append(q_torch(*_critic_wb(hp, th_t), na, hp.q_func_type))
     qmin_t = torch.amin(torch.stack(tqs, 0), dim=0)
     y = (rewards + discs * (1.0 - dones) * (qmin_t - alpha * nlogp)).detach()
 
@@ -146,7 +146,7 @@ def sac_train_step(acfg: TreeConfig, ccfg: TreeConfig, hp: SACHyper,
         theta = predict_sgd(ccfg, ens, obs, critic_specs, 0, ens.capacity)
         p = theta.detach().requires_grad_(True)
         with torch.enable_grad():
-            q = q_values(*_critic_wb(hp, p), actions, hp.q_func_type)
+            q = q_torch(*_critic_wb(hp, p), actions, hp.q_func_type)
             loss = 0.5 * torch.mean((q - y) ** 2)
             (g,) = torch.autograd.grad(loss, p)
         g = _clip_blocks(hp, g * N)
@@ -161,7 +161,7 @@ def sac_train_step(acfg: TreeConfig, ccfg: TreeConfig, hp: SACHyper,
     p = theta_a.detach().requires_grad_(True)
     with torch.enable_grad():
         a, logp = sample_squashed(p[:, :A], p[:, A:], eps_cur)
-        qs = [q_values(*_critic_wb(hp, qt), a, hp.q_func_type)
+        qs = [q_torch(*_critic_wb(hp, qt), a, hp.q_func_type)
               for qt in qthetas]
         qmin = torch.amin(torch.stack(qs, 0), dim=0)
         aloss = torch.mean(alpha * logp - qmin)

@@ -9,12 +9,15 @@ import numpy as np
 import pytest
 import torch
 
+from gbrl_tpu.ensemble import vars_dict as j_vars_dict
 from gbrl_tpu.learners.actor_critic_learner import (
     SeparateActorCriticLearner as JSeparate,
     SharedActorCriticLearner as JShared)
+from gbrl_tpu.learners.gbt_learner import GBTLearner as JGBTLearner
 from gbrl_tpu.models.actor_critic import ActorCritic as JActorCritic
 
-from gbrl_tpu_torch.ensemble import ensemble_from_numpy, ensemble_to_numpy
+from gbrl_tpu_torch.ensemble import (ensemble_from_numpy, ensemble_to_numpy,
+                                     vars_dict)
 from gbrl_tpu_torch.learners import gbt_learner as port_gbt
 from gbrl_tpu_torch.learners.actor_critic_learner import (
     SeparateActorCriticLearner, SharedActorCriticLearner)
@@ -177,6 +180,103 @@ def test_ensemble_numpy_round_trip():
     for k in arrs:
         assert back[k].dtype == arrs[k].dtype, k
         np.testing.assert_array_equal(back[k], arrs[k])
+
+
+def test_vars_dict_matches_jax():
+    """vars_dict gives gbrl_tpu's keys, in its order, and the ensemble's
+    own tensors, equal to the JAX package's arrays."""
+    from gbrl_tpu.ensemble import ensemble_to_numpy as j_to_numpy
+    jl, _ = _fit_shared("oblivious", "SGD", 3)
+    ens = ensemble_from_numpy(j_to_numpy(jl.ens), device="cpu")
+    got, want = vars_dict(ens), j_vars_dict(jl.ens)
+    assert list(got) == list(want)
+    for k, v in got.items():
+        assert v is getattr(ens, k) and v.device.type == "cpu"
+        np.testing.assert_array_equal(v.numpy(), np.asarray(want[k]))
+
+
+def _fit_separate(policy, steps=3):
+    X, _ = _data()
+    pol, val = _opts("SGD")
+    js = JSeparate(F, O, _struct(policy), pol, val, device="cpu")
+    js.reset()
+    rng = np.random.default_rng(1)
+    for _ in range(steps):
+        js.step(X, [rng.normal(size=(N, O - 1)).astype(np.float32),
+                    rng.normal(size=(N, 1)).astype(np.float32)])
+    return js, X
+
+
+@pytest.mark.parametrize("policy", ["greedy", "oblivious"])
+def test_separate_predict_matches_jax(tmp_path, policy):
+    """SeparateActorCriticLearner.predict: both models, one of them, a
+    tree range and numpy output, against gbrl_tpu's."""
+    js, X = _fit_separate(policy)
+    js.save(str(tmp_path / "sep"))
+    ts = SeparateActorCriticLearner.load(str(tmp_path / "sep"), device="cpu")
+    got, want = ts.predict(X), js.predict(X)
+    assert len(got) == 2 and got[0].shape == (N, O - 1)
+    assert got[1].shape == (N,) and got[0].requires_grad
+    for a, b in zip(got, want):
+        _assert_same(a, b)
+    for model_idx in (0, 1):
+        _assert_same(ts.predict(X, model_idx=model_idx),
+                     js.predict(X, model_idx=model_idx))
+    a = ts.predict(X, False, 1, 3, tensor=False, model_idx=0)
+    assert isinstance(a, np.ndarray)
+    _assert_same(a, js.predict(X, False, 1, 3, tensor=False, model_idx=0))
+
+
+@pytest.mark.parametrize("shared", [True, False])
+def test_actor_critic_save_learner_round_trip(tmp_path, shared):
+    """ActorCritic.save_learner of a model the port loaded: loaded again by
+    both packages, it predicts what the JAX package's model predicts."""
+    jl, X = _fit_shared("greedy", "SGD", 4) if shared else \
+        _fit_separate("oblivious")
+    jl.save(str(tmp_path / "a"))
+    jm = JActorCritic.load_learner(str(tmp_path / "a"), device="cpu")
+    tm = ActorCritic.load_learner(str(tmp_path / "a"), device="cpu")
+    tm.save_learner(str(tmp_path / "b"))
+    back = (ActorCritic.load_learner(str(tmp_path / "b"), device="cpu"),
+            JActorCritic.load_learner(str(tmp_path / "b"), device="cpu"))
+    for m in back:
+        assert m.shared_tree_struct == shared
+        for a, b in zip(m(X), jm(X)):
+            _assert_same(a, b)
+        assert m.get_num_trees() == jm.get_num_trees()
+
+
+@pytest.mark.parametrize("shared", [True, False])
+def test_actor_critic_get_num_trees_matches_jax(tmp_path, shared):
+    """An int on a shared model, (actor, critic) on a separate one: 0 on a
+    fresh model, then the loaded checkpoint's counts, as gbrl_tpu says."""
+    pol, val = _opts("SGD")
+    fresh = [cls(_struct("greedy"), F, O, dict(pol), dict(val),
+                 shared_tree_struct=shared, device="cpu")
+             for cls in (ActorCritic, JActorCritic)]
+    assert fresh[0].get_num_trees() == fresh[1].get_num_trees() == \
+        (0 if shared else (0, 0))
+    jl, _ = _fit_shared("greedy", "SGD", 4) if shared else \
+        _fit_separate("greedy", 2)
+    jl.save(str(tmp_path / "m"))
+    got, want = (cls.load_learner(str(tmp_path / "m"), device="cpu")
+                 .get_num_trees() for cls in (ActorCritic, JActorCritic))
+    assert got == want == (4 if shared else (2, 2))
+
+
+def test_gbt_learner_get_device_matches_jax():
+    """GBTLearner.get_device reports the device it was given, as
+    gbrl_tpu's does, and follows set_device."""
+    args = (F, 2, _struct("greedy"),
+            dict(algo="SGD", init_lr=0.1, start_idx=0, stop_idx=2))
+    tl, jl = port_gbt.GBTLearner(*args, device="cpu"), \
+        JGBTLearner(*args, device="cpu")
+    assert tl.get_device() == jl.get_device() == "cpu"
+    tl.reset()
+    tl.set_device("cpu")
+    jl.set_device("cpu")
+    assert tl.get_device() == jl.get_device() == "cpu"
+    assert tl.ens.feat.device.type == "cpu"
 
 
 # ------------------------------------------------- the reference's methods

@@ -26,6 +26,7 @@ from gbrl_tpu.ensemble import init_ensemble as j_init_ensemble
 from gbrl_tpu.ops import boosting as jboost
 from gbrl_tpu.ops.loss import multirmse_grads as j_multirmse_grads
 from gbrl_tpu.optimizers import OptimizerSpec as JOptimizerSpec
+from gbrl_tpu.parallel import hosts as jhosts
 from gbrl_tpu.parallel import sharded as jsharded
 from gbrl_tpu.rl.jit_awr import AWRHyper as JAWRHyper
 from gbrl_tpu.rl.jit_awr import awr_update_loop as j_awr_update_loop
@@ -34,7 +35,8 @@ from gbrl_tpu.rl.jit_update import ppo_update_loop as j_ppo_update_loop
 
 import torch_multihost_worker as W
 from gbrl_tpu_torch.config import TreeConfig
-from gbrl_tpu_torch.ensemble import ensemble_to_numpy, init_ensemble
+from gbrl_tpu_torch.ensemble import (ensemble_from_numpy, ensemble_to_numpy,
+                                     init_ensemble)
 from gbrl_tpu_torch.ops import fit as FT
 from gbrl_tpu_torch.optimizers import OptimizerSpec
 from gbrl_tpu_torch.parallel import hosts, sharded
@@ -147,6 +149,37 @@ def test_mesh_without_group_is_identity():
     np.testing.assert_array_equal(sharded.shard_batch(mesh, x).numpy(), x)
     rep = sharded.replicate(mesh, init_ensemble(TreeConfig(), 4, "cpu"))
     assert rep.feat.shape == (4, 15) and mesh.collectives == 0
+
+
+def test_hosts_replicate_on_one_rank():
+    """hosts.replicate on a world of 1: an ensemble and a feature-weight
+    array arrive on the rank's device equal to what gbrl_tpu's
+    hosts.replicate places on a one-device mesh; they are copies, and no
+    collective runs.  It is sharded.replicate: the package has one
+    replicate path, rank 0's values broadcast."""
+    assert hosts.replicate is sharded.replicate
+    mesh = sharded.make_mesh(device="cpu")
+    jmesh = jsharded.make_mesh(1)
+    cfg = W.supervised_config("cosine", JTreeConfig)
+    jens = j_init_ensemble(cfg, capacity=8)
+    jens = jens.replace(thr=jnp.asarray(np.random.default_rng(4).normal(
+        size=jens.thr.shape).astype(np.float32)))
+    ens = ensemble_from_numpy(j_ensemble_to_numpy(jens), device="cpu")
+    fw = np.linspace(0.5, 2.0, 4).astype(np.float32)
+    got = hosts.replicate(mesh, ens)
+    want = j_ensemble_to_numpy(jhosts.replicate(jmesh, jens))
+    for f, v in ensemble_to_numpy(got).items():
+        assert getattr(got, f).device == mesh.device
+        np.testing.assert_array_equal(v, want[f])
+    assert got.thr.data_ptr() != ens.thr.data_ptr()
+    t = torch.from_numpy(fw)
+    for arr in (fw, t):
+        got_fw = hosts.replicate(mesh, arr)
+        assert got_fw.device == mesh.device
+        assert got_fw.data_ptr() != t.data_ptr()
+        np.testing.assert_array_equal(got_fw.numpy(),
+                                      np.asarray(jhosts.replicate(jmesh, fw)))
+    assert mesh.collectives == 0
 
 
 def _j_cfg(name: str) -> JTreeConfig:

@@ -351,3 +351,28 @@ def test_single_tree_gather_and_cv_momentum_match_jax(fitted):
     np.testing.assert_allclose(
         tpred.cv_momentum(cfg, ens, _t(Xe)).numpy(),
         np.asarray(jpred.cv_momentum(cfg_j, ens_j, X)), **TOL)
+
+
+@pytest.mark.parametrize("case", ["greedy", "oblivious", "categorical"])
+def test_chunk_leaf_indices_matches_jax(fitted, case):
+    """chunk_leaf_indices gives gbrl_tpu's leaf indices (x == thr ties on
+    the fitted ensembles; categorical nodes on a random one), and the same
+    tensor as chunk_leaf_rel."""
+    if case == "categorical":
+        rng = np.random.default_rng(8)
+        cfg_j, ens_j, _ = _random_ensemble(rng, 4, 2, 3, 6, cat=True)
+        Xn = rng.normal(size=(90, 4)).astype(np.float32)
+        Xc = rng.integers(-1, 4, size=(90, 4)).astype(np.int32)
+    else:
+        cfg_j, ens_j, _, Xn = fitted[case]
+        Xc = None
+    e, ens = ens_j, _port(ens_j)
+    want = jpred.chunk_leaf_indices(
+        e.feat, e.thr, e.cat_code, e.is_split, e.is_numeric, jnp.asarray(Xn),
+        None if Xc is None else jnp.asarray(Xc), cfg_j.max_depth)
+    args = (ens.feat, ens.thr, ens.cat_code, ens.is_split, ens.is_numeric,
+            _t(Xn), None if Xc is None else _t(Xc), cfg_j.max_depth)
+    got = tpred.chunk_leaf_indices(*args)
+    assert got.shape == (len(Xn), ens.capacity)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert torch.equal(got, tpred.chunk_leaf_rel(*args))

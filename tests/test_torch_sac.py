@@ -34,7 +34,7 @@ TREE = dict(max_depth=4, n_bins=16, min_data_in_leaf=0, par_th=2,
 
 def test_q_forms_analytic():
     """tests/test_sac.py's Q-form check on the port, and the fused step's
-    q_values equal to q_from_params and to the JAX q_jax."""
+    q_torch equal to q_from_params and to the JAX q_jax."""
     rng = np.random.default_rng(0)
     n, a_dim = 17, 3
     w = th.as_tensor(rng.normal(size=(n, a_dim)).astype(np.float32))
@@ -48,7 +48,7 @@ def test_q_forms_analytic():
     assert th.allclose(q_from_params(w, b1, a, "tanh"),
                        b1[:, 0] * th.tanh(s))
     for qtype, b in (("linear", b1), ("quadratic", b2), ("tanh", b1)):
-        got = tsac.q_values(w, b, a, qtype)
+        got = tsac.q_torch(w, b, a, qtype)
         assert th.equal(got, q_from_params(w, b, a, qtype))
         want = np.asarray(jsac.q_jax(*(jnp.asarray(x.numpy())
                                        for x in (w, b, a)), qtype))

@@ -18,6 +18,7 @@ from gbrl_tpu.ops import shap as jshap
 from gbrl_tpu.ops import shap_refcompat as jref
 from gbrl_tpu.ops.boosting import boost_step as j_boost
 from gbrl_tpu.ops.shap_device import ensemble_shap_device as j_device
+from gbrl_tpu.ops.shap_device import tree_shap_device_one as j_device_one
 
 from chip_smoke import expected_raw
 from gbrl_tpu_torch.config import TreeConfig
@@ -124,6 +125,29 @@ def test_device_form_one_tree(grown):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     with pytest.raises(IndexError):
         tdev.ensemble_shap_device(cfg, ens, _t(x), _t(xc), 4, CAP)
+
+
+@pytest.mark.parametrize("policy,kind", [(p, k) for p in ("greedy",
+                                                          "oblivious")
+                                         for k in KINDS])
+def test_tree_shap_device_one_matches_jax(grown, policy, kind):
+    """One tree given by its own arrays, against gbrl_tpu's
+    tree_shap_device_one and against the ensemble's tree_idx form."""
+    jcfg, jens, cfg, ens, Xn, Xc = grown(policy, 3, kind)
+    x, xc = Xn[:8], _rows(Xc, 8)
+    F = cfg.input_dim
+    fields = ("feat", "thr", "cat_code", "is_split", "is_numeric", "counts",
+              "leaf_values")
+    for t in (0, TREES - 1):
+        got = tdev.tree_shap_device_one(
+            cfg, *(getattr(ens, f)[t] for f in fields), _t(x), _t(xc), F)
+        want = j_device_one(
+            jcfg, *(getattr(jens, f)[t] for f in fields), jnp.asarray(x),
+            None if xc is None else jnp.asarray(xc), F)
+        assert got.shape == (8, F, O)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+        assert torch.equal(got, tdev.ensemble_shap_device(
+            cfg, ens, _t(x), _t(xc), F, t))
 
 
 @pytest.mark.parametrize("policy", ["greedy", "oblivious"])
