@@ -29,7 +29,7 @@ from ..ops.predict import single_tree_leaf_values, weighted_leaf_sum
 from ..ops.shap_device import ensemble_shap_device
 from ..ops.shap_refcompat import ensemble_shap_ref_compat
 from ..optimizers import OptimizerSpec, adam_delta, scheduler_lr, sgd_coeff
-from ..utils import introspection
+from ..utils import introspection, profiling
 from ..utils.c_export import export_ensemble_header
 from ..utils.reference_export import export_reference_model
 from .base import BaseLearner
@@ -38,6 +38,9 @@ SAVE_SUFFIX = ".gbrl_model"
 # new trees since a cached prediction that are evaluated one by one; more
 # than this and the cached prediction is topped up with one delta sum
 MAX_SINGLE_TREE_UPDATES = 8
+# the prediction cache's counters by the path a keyed call took
+CACHE_COUNTERS = {"cached": "cache.hit", "delta": "cache.delta",
+                  "full": "cache.miss"}
 
 
 def _cache_key(inputs) -> Optional[bytes]:
@@ -167,6 +170,8 @@ class GBTLearner(BaseLearner):
 
     def _internal_feature_weights(self) -> torch.Tensor:
         """``_host_feature_weights`` on the learner's device."""
+        profiling.count_sync("feature_weights",
+                             self.torch_device.type == "cuda")
         return torch.from_numpy(self._host_feature_weights()).to(
             self.torch_device)
 
@@ -226,10 +231,14 @@ class GBTLearner(BaseLearner):
         num, cat = preprocess_features(inputs)
         if num is None:
             num = np.zeros((cat.shape[0], 0), dtype=np.float32)
+        on_card = self.torch_device.type == "cuda"
+        # copies from pageable host memory wait for the card
+        profiling.count_sync("prepare", on_card)
         Xn = torch.from_numpy(num).to(self.torch_device)
         if cat is None or cat.shape[1] == 0:
             return Xn, None
         codes = self.vocab.encode(cat, grow=grow_vocab)
+        profiling.count_sync("prepare_codes", on_card)
         return Xn, torch.from_numpy(codes).to(self.torch_device)
 
     # ------------------------------------------------------------------ train
@@ -350,37 +359,60 @@ class GBTLearner(BaseLearner):
         The cache key is an exact blake2b hash of the host bytes.  Only host
         inputs (numpy arrays, CPU tensors) are keyed: hashing a CUDA tensor
         would copy it to the host, so a CUDA input is always predicted in
-        full (the RL loops pass host arrays)."""
+        full (the RL loops pass host arrays).
+
+        Each call counts ``cache.hit`` (the cached prediction answers),
+        ``cache.delta`` (cache plus the new trees), ``cache.miss`` (keyed,
+        predicted in full) or ``cache.unkeyed``, and is recorded as a
+        ``predict`` span (rows, path ``cached`` / ``delta`` / ``full``)
+        holding ``prepare``, ``cache_key``, ``n_trees`` and
+        ``ensemble_sum`` (utils/profiling.py)."""
         assert self.ens is not None, "call reset() first"
-        Xn, Xc = self._prepare(inputs, grow_vocab=False)
-        key = (_cache_key(inputs)
-               if (start_idx in (0, None)) and (stop_idx in (None, 0))
-               and Xc is None and all(s.algo == "SGD" for s in self.specs)
-               else None)
-        cacheable = key is not None
-        preds = None
-        n_trees = self.get_num_trees() if cacheable else None
-        if cacheable and self._pred_cache is not None:
+        span = profiling.spanner()
+        with span("predict"):
+            with span("prepare"):
+                Xn, Xc = self._prepare(inputs, grow_vocab=False)
+            key = n_trees = None
+            if ((start_idx in (0, None)) and (stop_idx in (None, 0))
+                    and Xc is None and all(s.algo == "SGD"
+                                           for s in self.specs)):
+                with span("cache_key"):
+                    key = _cache_key(inputs)
+            if key is not None:
+                with span("n_trees"):
+                    n_trees = self.get_num_trees()
+            with span("ensemble_sum"):
+                preds, path = self._ensemble_sum(Xn, Xc, key, n_trees,
+                                                 start_idx, stop_idx)
+            profiling.count("cache.unkeyed" if key is None
+                            else CACHE_COUNTERS[path])
+            profiling.tag(rows=Xn.shape[0], path=path)
+            if key is not None:
+                self._pred_cache = (key, n_trees, preds)
+            return preds
+
+    def _ensemble_sum(self, Xn, Xc, key, n_trees: Optional[int],
+                      start_idx: int, stop_idx: Optional[int]):
+        """(predictions, path): the cached prediction of the same key
+        ("cached"), it plus the trees added since ("delta"), or a full
+        predict ("full")."""
+        if key is not None and self._pred_cache is not None:
             ckey, cn, cpred = self._pred_cache
             if ckey == key and cn <= n_trees and \
                     cpred.shape[0] == Xn.shape[0]:
                 if cn == n_trees:
-                    preds = cpred
-                elif n_trees - cn <= MAX_SINGLE_TREE_UPDATES:
+                    return cpred, "cached"
+                if n_trees - cn <= MAX_SINGLE_TREE_UPDATES:
                     preds = cpred
                     for t in range(cn, n_trees):
                         preds = preds + _predict_one_tree(
                             self.cfg, self.ens, Xn, self.specs, t)
-                else:
-                    preds = cpred + _predict_delta(self.cfg, self.ens, Xn,
-                                                   self.specs, cn)
-        if preds is None:
-            stop = stop_idx if stop_idx else int(self.ens.capacity)
-            preds = _predict_full(self.cfg, self.ens, Xn, self.specs,
-                                  start_idx or 0, stop, Xc)
-        if cacheable:
-            self._pred_cache = (key, n_trees, preds)
-        return preds
+                    return preds, "delta"
+                return cpred + _predict_delta(self.cfg, self.ens, Xn,
+                                              self.specs, cn), "delta"
+        stop = stop_idx if stop_idx else int(self.ens.capacity)
+        return _predict_full(self.cfg, self.ens, Xn, self.specs,
+                             start_idx or 0, stop, Xc), "full"
 
     def predict(self, inputs: NumericalData, requires_grad: bool = True,
                 start_idx: int = 0, stop_idx: Optional[int] = None,
@@ -407,7 +439,10 @@ class GBTLearner(BaseLearner):
         return self.get_num_trees()
 
     def get_num_trees(self) -> int:
-        return int(self.ens.n_trees) if self.ens is not None else 0
+        if self.ens is None:
+            return 0
+        profiling.count_sync("n_trees", self.ens.n_trees.is_cuda)
+        return int(self.ens.n_trees)
 
     def get_total_iterations(self) -> int:
         return self.total_iterations

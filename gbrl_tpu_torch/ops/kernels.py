@@ -26,7 +26,8 @@ installed package) under ``$XDG_CACHE_HOME`` or ``~/.cache``, in
 A wrapper given CPU tensors runs the plain version.  Given CUDA tensors it
 launches the kernel or raises: it never falls back.  Each wrapper counts its
 calls that launch on the card in ``launch_counts`` (one per call, each one
-device kernel; the CPU branch does not count).
+device kernel; the CPU branch does not count) and in the counter
+``launch.<key>`` of ``utils/profiling.py``, which credits the open span.
 """
 from __future__ import annotations
 
@@ -41,6 +42,8 @@ from pathlib import Path
 from typing import Callable, NamedTuple, Union
 
 import torch
+
+from ..utils.profiling import count
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("predict.cu", "fit.cu", "tree.cu")
@@ -89,6 +92,16 @@ launch_counts = {"bucketize": 0, "level_histogram": 0, "level_score": 0,
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
+
+
+def _launched(key: str) -> None:
+    """One call launched kernel ``key`` on the card: ``launch_counts`` and
+    the program's ``launch.<key>`` counter (credited to the open span)."""
+    launch_counts[key] += 1
+    count(_LAUNCH_NAMES[key])
+
+
+_LAUNCH_NAMES = {k: "launch." + k for k in launch_counts}
 
 
 # ------------------------------------------------------------ plain versions
@@ -467,7 +480,7 @@ def _launch(fn_name: str, count_key: str, oblivious: bool, X, feat, thr,
           None if coeff is None else coeff.data_ptr(), n_trees.data_ptr(),
           out.data_ptr(), None if scratch is None else scratch.data_ptr(),
           ctypes.addressof(params))
-    launch_counts[count_key] += 1
+    _launched(count_key)
     return out
 
 
@@ -764,7 +777,7 @@ def bucketize_cuda(X: torch.Tensor, cand_vals: torch.Tensor) -> torch.Tensor:
     fc, bc = _bucketize_ready(_index(dev), F, B)
     _call(lib, "gbrl_k1_bucketize", dev, X.data_ptr(), cand_vals.data_ptr(),
           out.data_ptr(), N, F, B, fc, bc)
-    launch_counts["bucketize"] += 1
+    _launched("bucketize")
     return out
 
 
@@ -856,7 +869,7 @@ def level_histogram_cuda(Xb: torch.Tensor, nd: torch.Tensor,
     _call(lib, "gbrl_k2_level_histogram", dev, Xb.data_ptr(), nd.data_ptr(),
           out.data_ptr(), N, F, C, n_buckets, plan.S, plan.tile, plan.fs,
           plan.cs, plan.br)
-    launch_counts["level_histogram"] += 1
+    _launched("level_histogram")
     return out
 
 
@@ -991,7 +1004,7 @@ def level_score_cuda(hist: torch.Tensor, blocked: torch.Tensor,
           blocked.data_ptr(), feat_w.data_ptr(), out.data_ptr(),
           None if scratch is None else scratch.data_ptr(),
           ctypes.addressof(params), float(min_data))
-    launch_counts["level_score"] += 1
+    _launched("level_score")
     return out[0].view(torch.int32), out[1], out[2], out[3], out[4:].t()
 
 
@@ -1292,7 +1305,7 @@ def tree_build_cuda(Xb: torch.Tensor, cand: torch.Tensor, feat_w: torch.Tensor,
           cand.data_ptr(), feat_w.data_ptr(), bgw.data_ptr(), wg.data_ptr(),
           scg.data_ptr(), idx.data_ptr(), split.data_ptr(), stats.data_ptr(),
           leaf.data_ptr(), ctypes.addressof(params), float(min_data))
-    launch_counts["tree_build"] += 1
+    _launched("tree_build")
     return (idx.view(torch.int32).view(D, NPMAX),
             split.view(torch.bool)[:D * NPMAX].view(D, NPMAX),
             stats.view(D, NPMAX, O + 3), leaf.view(1 << D, K))

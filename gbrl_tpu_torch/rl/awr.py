@@ -24,6 +24,7 @@ from torch.distributions import Normal
 
 from ..models.actor import GaussianActor
 from ..models.gbt import GBTModel
+from ..utils import profiling
 
 
 class AWR:
@@ -120,12 +121,13 @@ class AWR:
             ls = ls + (self.log_std_final - ls) * min(self._progress, 1.0)
         return ls
 
-    def _act(self, obs: np.ndarray, rng):
+    def _act(self, obs: np.ndarray, rng, span=profiling.span):
         m = self._get_mirrors()
         if m:
             # numpy sampling: torch per-op overhead dominates tiny rollout
             # batches (see rl/ppo.py _sample_np)
-            theta = m[0].predict(np.asarray(obs, dtype=np.float32))
+            with span("mirror.forward", rows=len(obs)):
+                theta = m[0].predict(np.asarray(obs, dtype=np.float32))
             A = self.act_dim
             mu = theta[:, :A]
             log_std = np.clip(theta[:, A:], -2.5, 0.5) if self.learn_std \
@@ -143,7 +145,9 @@ class AWR:
     def _values(self, obs: np.ndarray) -> np.ndarray:
         m = self._get_mirrors()
         if m:
-            return m[1].predict(np.asarray(obs, dtype=np.float32)).reshape(-1)
+            with profiling.span("mirror.forward", rows=len(obs)):
+                return m[1].predict(np.asarray(obs, dtype=np.float32)
+                                    ).reshape(-1)
         return np.asarray(self.critic(obs, requires_grad=False,
                                       tensor=False)).reshape(-1)
 
@@ -158,8 +162,9 @@ class AWR:
         prev_done = self._prev_done
         low = self.env.single_action_space.low
         high = self.env.single_action_space.high
+        span = profiling.spanner()
         for _ in range(self.n_steps // E):
-            a_clip = np.clip(self._act(obs, rng), low, high)
+            a_clip = np.clip(self._act(obs, rng, span), low, high)
             next_obs, rew, term, trunc, _ = self.env.step(a_clip)
             done = np.logical_or(term, trunc)
             O.append(obs); NO.append(next_obs); A.append(a_clip); R.append(rew)
@@ -199,6 +204,7 @@ class AWR:
         obs_l, act_l, ret_l, adv_l = [], [], [], []
         m = self._get_mirrors()
         cm = m[1] if m else None
+        span = profiling.spanner()
         for ci, (O, NO, A, R, Term, Trunc, Valid) in enumerate(self._replay):
             T, E = R.shape
             if cm is not None:
@@ -206,16 +212,19 @@ class AWR:
                 t_now = cm.n_synced
                 if cache is None or not np.array_equal(cache["bias"],
                                                        cm.bias):
-                    cache = dict(
-                        v=cm.predict(O.reshape(T * E, -1))[:, 0].copy(),
-                        vn=cm.predict(NO.reshape(T * E, -1))[:, 0].copy(),
-                        t=t_now, bias=cm.bias.copy())
+                    with span("mirror.range", rows=2 * T * E, trees=t_now):
+                        cache = dict(
+                            v=cm.predict(O.reshape(T * E, -1))[:, 0].copy(),
+                            vn=cm.predict(NO.reshape(T * E, -1))[:, 0].copy(),
+                            t=t_now, bias=cm.bias.copy())
                     self._vcache[ci] = cache
                 elif cache["t"] < t_now:
-                    cache["v"] += cm.predict_range(
-                        O.reshape(T * E, -1), cache["t"], t_now)[:, 0]
-                    cache["vn"] += cm.predict_range(
-                        NO.reshape(T * E, -1), cache["t"], t_now)[:, 0]
+                    with span("mirror.range", rows=2 * T * E,
+                              trees=t_now - cache["t"]):
+                        cache["v"] += cm.predict_range(
+                            O.reshape(T * E, -1), cache["t"], t_now)[:, 0]
+                        cache["vn"] += cm.predict_range(
+                            NO.reshape(T * E, -1), cache["t"], t_now)[:, 0]
                     cache["t"] = t_now
                 v = cache["v"].reshape(T, E)
                 vn = cache["vn"].reshape(T, E)
@@ -287,29 +296,36 @@ class AWR:
             lr._rl_host_n_trees = n0
         steps, it = 0, 0
         while steps < total_timesteps:
-            chunk = self._rollout(obs, rng)
-            obs = chunk[-1]
-            self._replay.append(chunk[:-1])
-            self._vcache.append(None)
-            total = sum(x[3].size for x in self._replay)
-            while total > self.buffer_size and len(self._replay) > 1:
-                total -= self._replay.pop(0)[3].size
-                self._vcache.pop(0)
-            if it == 0:
-                # jump the critic to the return scale at once (reference
-                # GBTModel.set_bias_from_targets, gbt.py:130-148)
-                _, _, ret0, _ = self._recompute_replay()
-                self.critic.set_bias_from_targets(ret0.reshape(-1, 1))
+            # spans (utils/profiling.py): an ``iteration`` holds the
+            # ``rollout``, the ``replay`` recomputes, the ``update`` and the
+            # mirrors' syncs
+            with profiling.span("iteration", it=it):
+                with profiling.span("rollout"):
+                    chunk = self._rollout(obs, rng)
+                obs = chunk[-1]
+                self._replay.append(chunk[:-1])
+                self._vcache.append(None)
+                total = sum(x[3].size for x in self._replay)
+                while total > self.buffer_size and len(self._replay) > 1:
+                    total -= self._replay.pop(0)[3].size
+                    self._vcache.pop(0)
+                if it == 0:
+                    # jump the critic to the return scale at once (reference
+                    # GBTModel.set_bias_from_targets, gbt.py:130-148)
+                    with profiling.span("replay"):
+                        _, _, ret0, _ = self._recompute_replay()
+                    self.critic.set_bias_from_targets(ret0.reshape(-1, 1))
+                    self._sync_mirrors()
+                with profiling.span("replay"):
+                    r_obs, r_act, r_ret, r_adv = self._recompute_replay()
+                if self.jit_update and self.actor.learner.vocab is None:
+                    # every critic and actor boosting step of this iteration
+                    # in one loop on the device (rl/jit_awr.py)
+                    from .jit_awr import run_awr_update
+                    run_awr_update(self, r_obs, r_act, r_ret, rng, r_adv)
+                else:
+                    self._update_facade(r_obs, r_act, r_ret, r_adv, rng)
                 self._sync_mirrors()
-            r_obs, r_act, r_ret, r_adv = self._recompute_replay()
-            if self.jit_update and self.actor.learner.vocab is None:
-                # every critic and actor boosting step of this iteration in
-                # one loop on the device (rl/jit_awr.py)
-                from .jit_awr import run_awr_update
-                run_awr_update(self, r_obs, r_act, r_ret, rng, r_adv)
-            else:
-                self._update_facade(r_obs, r_act, r_ret, r_adv, rng)
-            self._sync_mirrors()
             steps += self.n_steps
             it += 1
             self._progress = steps / max(total_timesteps, 1)

@@ -27,6 +27,7 @@ from ..config import TreeConfig
 from ..ensemble import Ensemble, ensure_capacity
 from ..ops.boosting import predict_sgd
 from ..optimizers import OptimizerSpec
+from ..utils import profiling
 from .jit_sac import _boost, clip_as_jax
 
 
@@ -62,17 +63,22 @@ def awr_update_loop(acfg: TreeConfig, ccfg: TreeConfig, hp: AWRHyper,
     actor_specs, critic_specs = specs
     Kc, Ka = n_updates
     dev = X.device
+    span = profiling.spanner()
     ctrace = []
     for k in range(Kc):
-        idx = cmb_idx[k]
-        critic_ens, loss = awr_critic_step(ccfg, critic_specs, critic_ens,
-                                           feat_w, X[idx], rets[idx])
+        with span("minibatch", u=k, learner="critic"):
+            idx = cmb_idx[k]
+            critic_ens, loss = awr_critic_step(ccfg, critic_specs,
+                                               critic_ens, feat_w, X[idx],
+                                               rets[idx])
         ctrace.append(loss)
     atrace = []
     for k in range(Ka):
-        idx = amb_idx[k]
-        actor_ens, loss = awr_actor_step(acfg, hp, actor_specs, actor_ens,
-                                         feat_w, X[idx], acts[idx], advs[idx])
+        with span("minibatch", u=k, learner="actor"):
+            idx = amb_idx[k]
+            actor_ens, loss = awr_actor_step(acfg, hp, actor_specs,
+                                             actor_ens, feat_w, X[idx],
+                                             acts[idx], advs[idx])
         atrace.append(loss)
     return actor_ens, critic_ens, (_trace(ctrace, dev), _trace(atrace, dev))
 
@@ -82,9 +88,10 @@ def awr_critic_step(ccfg: TreeConfig, critic_specs, critic_ens: Ensemble,
                     r: torch.Tensor):
     """One critic regression tree on a minibatch (rows already gathered).
     Returns (critic ensemble, the minibatch's loss)."""
-    v = predict_sgd(ccfg, critic_ens, Xmb, critic_specs, 0,
-                    critic_ens.capacity)[:, 0]
-    g = (v - r)[:, None]          # d/dv[0.5 * mse] * n
+    with profiling.span("grads"):
+        v = predict_sgd(ccfg, critic_ens, Xmb, critic_specs, 0,
+                        critic_ens.capacity)[:, 0]
+        g = (v - r)[:, None]          # d/dv[0.5 * mse] * n
     critic_ens = _boost(ccfg, critic_ens, Xmb, g, feat_w)
     return critic_ens, 0.5 * torch.mean((v - r) ** 2)
 
@@ -94,6 +101,16 @@ def awr_actor_step(acfg: TreeConfig, hp: AWRHyper, actor_specs,
                    Xmb: torch.Tensor, a: torch.Tensor, adv: torch.Tensor):
     """One advantage-weighted actor tree on a minibatch (rows already
     gathered).  Returns (actor ensemble, the minibatch's loss)."""
+    with profiling.span("grads"):
+        g, loss = _actor_grads(acfg, hp, actor_specs, actor_ens, Xmb, a, adv)
+    return _boost(acfg, actor_ens, Xmb, g, feat_w), loss.detach()
+
+
+def _actor_grads(acfg: TreeConfig, hp: AWRHyper, actor_specs,
+                 actor_ens: Ensemble, Xmb: torch.Tensor, a: torch.Tensor,
+                 adv: torch.Tensor):
+    """The actor's per-sample boosting gradients on a minibatch and its
+    loss."""
     A = hp.act_dim
     mb = Xmb.shape[0]
     # population std (ddof 0), as jnp.std and the facade's np.std
@@ -126,7 +143,7 @@ def awr_actor_step(acfg: TreeConfig, hp: AWRHyper, actor_specs,
         # neighbouring leaves
         norms = torch.sqrt(torch.sum(g * g, dim=-1, keepdim=True))
         g = g * torch.clamp(hp.grad_clip / (norms + 1e-8), max=1.0)
-    return _boost(acfg, actor_ens, Xmb, g, feat_w), loss.detach()
+    return g, loss
 
 
 def run_awr_update(algo, r_obs: np.ndarray, r_act: np.ndarray,
@@ -137,46 +154,58 @@ def run_awr_update(algo, r_obs: np.ndarray, r_act: np.ndarray,
 
     The JAX package pads the replay to a power of two to keep its jit
     signatures stable; nothing here is compiled per shape, and the plans
-    never index past B, so the replay is copied as it is."""
-    actor_lr = algo.actor.learner
-    critic_lr = algo.critic.learner
-    B = len(r_obs)
-    mb = min(algo.batch_size, B)
-    Kc, Ka = algo.critic_updates, algo.actor_updates
-    cmb = rng.integers(0, B, (max(Kc, 1), mb)).astype(np.int32)
-    amb = rng.integers(0, B, (max(Ka, 1), mb)).astype(np.int32)
+    never index past B, so the replay is copied as it is.  Spans
+    (utils/profiling.py): ``update`` holds ``update.stage`` (everything
+    before the loop) and a ``minibatch`` a tree."""
+    with profiling.span("update", algo="awr"):
+        with profiling.span("update.stage"):
+            actor_lr = algo.actor.learner
+            critic_lr = algo.critic.learner
+            B = len(r_obs)
+            mb = min(algo.batch_size, B)
+            Kc, Ka = algo.critic_updates, algo.actor_updates
+            cmb = rng.integers(0, B, (max(Kc, 1), mb)).astype(np.int32)
+            amb = rng.integers(0, B, (max(Ka, 1), mb)).astype(np.int32)
 
-    Xn, Xc = actor_lr._prepare(r_obs, grow_vocab=False)
-    assert Xc is None, "the fused AWR update takes numerical features only"
-    # host-side tree counters: int(ens.n_trees) would wait for the card
-    nta = actor_lr._rl_host_n_trees
-    if nta is None:
-        nta = int(actor_lr.ens.n_trees)
-    ntc = critic_lr._rl_host_n_trees
-    if ntc is None:
-        ntc = int(critic_lr.ens.n_trees)
-    actor_lr.ens = ensure_capacity(actor_lr.ens, nta + Ka)
-    critic_lr.ens = ensure_capacity(critic_lr.ens, ntc + Kc)
-    actor_lr._rl_host_n_trees = nta + Ka
-    critic_lr._rl_host_n_trees = ntc + Kc
-    hp = AWRHyper(act_dim=algo.act_dim, beta=algo.beta,
-                  max_weight=algo.max_weight, learn_std=algo.learn_std,
-                  log_std_init=algo.actor.log_std_init,
-                  grad_clip=algo.max_actor_grad_norm)
-    dev = actor_lr.torch_device
-    A = algo.act_dim
-    pack = torch.from_numpy(np.concatenate(
-        [np.asarray(r_act, np.float32).reshape(B, A),
-         np.asarray(r_ret, np.float32).reshape(B, 1),
-         np.asarray(r_adv, np.float32).reshape(B, 1)], axis=1)).to(dev)
-    plans = torch.from_numpy(np.concatenate([cmb, amb]).astype(np.int64)
-                             ).to(dev)
-    actor_lr.ens, critic_lr.ens, _ = awr_update_loop(
-        actor_lr.cfg, critic_lr.cfg, hp, (actor_lr.specs, critic_lr.specs),
-        (Kc, Ka), actor_lr.ens, critic_lr.ens, Xn, pack[:, :A],
-        pack[:, A], pack[:, A + 1], plans[:len(cmb)], plans[len(cmb):],
-        actor_lr._internal_feature_weights())
-    actor_lr.total_iterations += Ka
-    actor_lr._pred_cache = None
-    critic_lr.total_iterations += Kc
-    critic_lr._pred_cache = None
+            Xn, Xc = actor_lr._prepare(r_obs, grow_vocab=False)
+            assert Xc is None, \
+                "the fused AWR update takes numerical features only"
+            # host-side tree counters: reading ens.n_trees would wait for
+            # the card
+            nta = actor_lr._rl_host_n_trees
+            if nta is None:
+                nta = actor_lr.get_num_trees()
+            ntc = critic_lr._rl_host_n_trees
+            if ntc is None:
+                ntc = critic_lr.get_num_trees()
+            actor_lr.ens = ensure_capacity(actor_lr.ens, nta + Ka)
+            critic_lr.ens = ensure_capacity(critic_lr.ens, ntc + Kc)
+            actor_lr._rl_host_n_trees = nta + Ka
+            critic_lr._rl_host_n_trees = ntc + Kc
+            hp = AWRHyper(act_dim=algo.act_dim, beta=algo.beta,
+                          max_weight=algo.max_weight,
+                          learn_std=algo.learn_std,
+                          log_std_init=algo.actor.log_std_init,
+                          grad_clip=algo.max_actor_grad_norm)
+            dev = actor_lr.torch_device
+            on_card = dev.type == "cuda"
+            A = algo.act_dim
+            pack = torch.from_numpy(np.concatenate(
+                [np.asarray(r_act, np.float32).reshape(B, A),
+                 np.asarray(r_ret, np.float32).reshape(B, 1),
+                 np.asarray(r_adv, np.float32).reshape(B, 1)], axis=1)
+            ).to(dev)
+            profiling.count_sync("awr_pack", on_card)
+            plans = torch.from_numpy(np.concatenate([cmb, amb])
+                                     .astype(np.int64)).to(dev)
+            profiling.count_sync("awr_plan", on_card)
+            feat_w = actor_lr._internal_feature_weights()
+        actor_lr.ens, critic_lr.ens, _ = awr_update_loop(
+            actor_lr.cfg, critic_lr.cfg, hp,
+            (actor_lr.specs, critic_lr.specs), (Kc, Ka), actor_lr.ens,
+            critic_lr.ens, Xn, pack[:, :A], pack[:, A], pack[:, A + 1],
+            plans[:len(cmb)], plans[len(cmb):], feat_w)
+        actor_lr.total_iterations += Ka
+        actor_lr._pred_cache = None
+        critic_lr.total_iterations += Kc
+        critic_lr._pred_cache = None

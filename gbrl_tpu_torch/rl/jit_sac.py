@@ -31,6 +31,7 @@ from ..ops.boosting import _masked_candidates, predict_sgd, write_tree
 from ..ops.candidates import bucketize
 from ..ops.fit import build_tree, standardize_l2
 from ..optimizers import OptimizerSpec
+from ..utils import profiling
 from .jit_update import _block_clip
 
 LOG_STD_MIN, LOG_STD_MAX = -20.0, 2.0
@@ -90,10 +91,12 @@ def _boost(cfg: TreeConfig, ens: Ensemble, X: torch.Tensor,
     N = X.shape[0]
     w = torch.ones((N,), dtype=torch.float32, device=X.device)
     build = standardize_l2(grads, w) if cfg.score == "l2" else grads
-    cand_vals = _masked_candidates(cfg, X, N)
-    tree = build_tree(cfg, bucketize(X, cand_vals), cand_vals, grads, build,
-                      w, feat_w)
-    return write_tree(ens, tree, ens.n_trees)
+    with profiling.span("candidates"):
+        cand_vals = _masked_candidates(cfg, X, N)
+        Xb = bucketize(X, cand_vals)
+    tree = build_tree(cfg, Xb, cand_vals, grads, build, w, feat_w)
+    with profiling.span("write"):
+        return write_tree(ens, tree, ens.n_trees)
 
 
 def _critic_wb(hp: SACHyper, theta: torch.Tensor):

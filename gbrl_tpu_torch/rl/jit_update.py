@@ -33,6 +33,7 @@ from ..ops.candidates import bucketize
 from ..ops.fit import build_tree, standardize_l2
 from ..ops.predict import single_tree_leaf_values
 from ..optimizers import OptimizerSpec
+from ..utils import profiling
 
 
 class PPOHyper(NamedTuple):
@@ -122,17 +123,22 @@ def ppo_update_loop(cfg: TreeConfig, hp: PPOHyper, n_updates: int,
     preds_full = predict_sgd(cfg, ens, X, specs, 0, n_trees0)
     rows = torch.arange(mb, device=dev)
     ents = []
+    span = profiling.spanner()
     for u in range(n_updates):
-        idx = mb_idx[u]
-        n_u = int(mb_n[u])
-        w = (rows < n_u).to(torch.float32)
-        if valid is not None:
-            w = w * valid[idx]          # autoreset rows (rl/buffers.py flat)
-        ens, tree, t_idx, ent = ppo_minibatch_step(
-            cfg, hp, specs, feat_w, ens, n_trees0 + u, n_u, w, X[idx],
-            preds_full[idx], actions[idx], old_logp[idx], adv[idx], ret[idx])
-        ents.append(ent)
-        preds_full = preds_full + tree_prediction(cfg, specs, tree, t_idx, X)
+        with span("minibatch", u=u, learner="shared"):
+            idx = mb_idx[u]
+            n_u = int(mb_n[u])
+            w = (rows < n_u).to(torch.float32)
+            if valid is not None:
+                w = w * valid[idx]      # autoreset rows (rl/buffers.py flat)
+            ens, tree, t_idx, ent = ppo_minibatch_step(
+                cfg, hp, specs, feat_w, ens, n_trees0 + u, n_u, w, X[idx],
+                preds_full[idx], actions[idx], old_logp[idx], adv[idx],
+                ret[idx])
+            ents.append(ent)
+            with span("predict_new"):
+                preds_full = preds_full + tree_prediction(cfg, specs, tree,
+                                                          t_idx, X)
     return ens, entropy_trace(ents, dev)
 
 
@@ -146,13 +152,17 @@ def ppo_minibatch_step(cfg: TreeConfig, hp: PPOHyper,
     gradients from the predictions ``pmb`` -> candidates (K1) -> one tree
     written at index ``t`` (a host int).  Returns (ensemble, tree, the tree
     index as a device tensor, the minibatch's mean policy entropy)."""
-    grads = ppo_minibatch_grads(hp, pmb, act, old_logp, adv, ret, w)
-    build = standardize_l2(grads, w) if cfg.score == "l2" else grads
-    cand_vals = _masked_candidates(cfg, Xmb, n_u)
-    tree = build_tree(cfg, bucketize(Xmb, cand_vals), cand_vals, grads,
-                      build, w, feat_w)
-    t_idx = torch.full((), t, dtype=torch.int32, device=Xmb.device)
-    ens = write_tree(ens, tree, t_idx)
+    span = profiling.span
+    with span("grads"):
+        grads = ppo_minibatch_grads(hp, pmb, act, old_logp, adv, ret, w)
+        build = standardize_l2(grads, w) if cfg.score == "l2" else grads
+    with span("candidates"):
+        cand_vals = _masked_candidates(cfg, Xmb, n_u)
+        Xb = bucketize(Xmb, cand_vals)
+    tree = build_tree(cfg, Xb, cand_vals, grads, build, w, feat_w)
+    with span("write"):
+        t_idx = torch.full((), t, dtype=torch.int32, device=Xmb.device)
+        ens = write_tree(ens, tree, t_idx)
     # mean policy entropy of this minibatch (diagnostic)
     logp_all = torch.log_softmax(pmb[:, :hp.n_actions], dim=-1)
     ent = -torch.sum(torch.exp(logp_all) * logp_all, dim=-1)
@@ -204,32 +214,44 @@ def run_ppo_update(learner, obs: np.ndarray, actions: np.ndarray,
     """Host wrapper: build the minibatch plan, copy the rollout to the
     device once (observations, one packed [B, 5] float block and the plan),
     run the loop, read the entropy trace back.  Updates the learner in
-    place; returns the trace."""
-    mb_idx, mb_n = minibatch_plan(len(obs), n_epochs, batch_size, rng)
-    U = len(mb_n)
-    Xn, Xc = learner._prepare(obs, grow_vocab=False)
-    assert Xc is None, "the fused PPO update takes numerical features only"
-    # the host copy of n_trees: reading ens.n_trees would wait for the card
-    nt = learner._rl_host_n_trees
-    if nt is None:
-        nt = int(learner.ens.n_trees)
-    learner.ens = ensure_capacity(learner.ens, nt + U)
-    learner._rl_host_n_trees = nt + U
-    dev = learner.torch_device
-    n = len(obs)
-    cols = [np.asarray(actions, np.float32).reshape(n),
-            np.asarray(old_log_probs, np.float32).reshape(n),
-            np.asarray(advantages, np.float32).reshape(n),
-            np.asarray(returns, np.float32).reshape(n),
-            (np.ones(n, np.float32) if valid is None
-             else np.asarray(valid, np.float32).reshape(n))]
-    pack = torch.from_numpy(np.stack(cols, axis=1)).to(dev)
-    learner.ens, ent_trace = ppo_update_loop(
-        learner.cfg, hp, U, learner.ens, Xn,
-        torch.from_numpy(mb_idx).to(dev), mb_n.tolist(),
-        pack[:, 0].to(torch.int64), pack[:, 1], pack[:, 2], pack[:, 3],
-        learner.specs, learner._internal_feature_weights(), nt,
-        None if valid is None else pack[:, 4])
-    learner.total_iterations += U
-    learner._pred_cache = None
-    return ent_trace.cpu().numpy()
+    place; returns the trace.  Spans (utils/profiling.py): ``update``
+    holds ``update.stage`` (everything before the loop), a ``minibatch``
+    a tree and ``update.readback``."""
+    with profiling.span("update", algo="ppo"):
+        with profiling.span("update.stage"):
+            mb_idx, mb_n = minibatch_plan(len(obs), n_epochs, batch_size,
+                                          rng)
+            U = len(mb_n)
+            Xn, Xc = learner._prepare(obs, grow_vocab=False)
+            assert Xc is None, \
+                "the fused PPO update takes numerical features only"
+            # the host copy of n_trees: reading ens.n_trees would wait for
+            # the card
+            nt = learner._rl_host_n_trees
+            if nt is None:
+                nt = learner.get_num_trees()
+            learner.ens = ensure_capacity(learner.ens, nt + U)
+            learner._rl_host_n_trees = nt + U
+            dev = learner.torch_device
+            on_card = dev.type == "cuda"
+            n = len(obs)
+            cols = [np.asarray(actions, np.float32).reshape(n),
+                    np.asarray(old_log_probs, np.float32).reshape(n),
+                    np.asarray(advantages, np.float32).reshape(n),
+                    np.asarray(returns, np.float32).reshape(n),
+                    (np.ones(n, np.float32) if valid is None
+                     else np.asarray(valid, np.float32).reshape(n))]
+            pack = torch.from_numpy(np.stack(cols, axis=1)).to(dev)
+            profiling.count_sync("ppo_pack", on_card)
+            plan = torch.from_numpy(mb_idx).to(dev)
+            profiling.count_sync("ppo_plan", on_card)
+            feat_w = learner._internal_feature_weights()
+        learner.ens, ent_trace = ppo_update_loop(
+            learner.cfg, hp, U, learner.ens, Xn, plan, mb_n.tolist(),
+            pack[:, 0].to(torch.int64), pack[:, 1], pack[:, 2], pack[:, 3],
+            learner.specs, feat_w, nt, None if valid is None else pack[:, 4])
+        learner.total_iterations += U
+        learner._pred_cache = None
+        with profiling.span("update.readback"):
+            profiling.count_sync("ppo_readback", on_card)
+            return ent_trace.cpu().numpy()

@@ -21,6 +21,7 @@ import torch as th
 from torch.distributions import Categorical
 
 from ..models.actor_critic import ActorCritic
+from ..utils import profiling
 from .buffers import RolloutBuffer
 
 
@@ -125,12 +126,14 @@ class PPO:
         theta, value = self.model(obs, requires_grad=False, tensor=True)
         return theta.cpu(), value.cpu()
 
-    def _sample_np(self, obs: np.ndarray, rng):
+    def _sample_np(self, obs: np.ndarray, rng, span=profiling.span):
         """Numpy categorical sampling from mirror predictions: torch's
         per-op overhead dominates tiny rollout batches.  Returns (actions
-        i64 [N], log_probs f32 [N], values [N])."""
+        i64 [N], log_probs f32 [N], values [N]).  The mirror's forward is a
+        ``mirror.forward`` span (``span``: the rollout's, read once)."""
         mirror = self._get_mirror()
-        preds = mirror.predict(np.asarray(obs, dtype=np.float32))
+        with span("mirror.forward", rows=len(obs)):
+            preds = mirror.predict(np.asarray(obs, dtype=np.float32))
         logits = preds[:, :self.n_actions]
         logits = logits - logits.max(axis=1, keepdims=True)
         logp = logits - np.log(np.exp(logits).sum(axis=1, keepdims=True))
@@ -151,9 +154,11 @@ class PPO:
 
     def collect_rollout(self, buffer: RolloutBuffer, obs, dones, rng):
         use_np = self._get_mirror() is not None
+        span = profiling.spanner()
         for _ in range(self.n_steps):
             if use_np:
-                actions_np, log_probs, values = self._sample_np(obs, rng)
+                actions_np, log_probs, values = self._sample_np(obs, rng,
+                                                                span)
             else:
                 theta, value = self._policy_value(obs)
                 dist = Categorical(logits=theta)
@@ -167,8 +172,9 @@ class PPO:
             self._track_episodes(0, rewards, done_now)
             obs, dones = next_obs, done_now
         if use_np:
-            preds = self._get_mirror().predict(
-                np.asarray(obs, dtype=np.float32))
+            with span("mirror.forward", rows=len(obs)):
+                preds = self._get_mirror().predict(
+                    np.asarray(obs, dtype=np.float32))
             last_values = preds[:, self.n_actions]
         else:
             _, last_value = self._policy_value(obs)
@@ -187,10 +193,11 @@ class PPO:
         mirror = self._get_mirror()
         if mirror is not None:
             # host mirror makes forwards ~us: no pipelining needed
+            span = profiling.spanner()
             for g in range(G):
                 for _ in range(self.n_steps):
                     a_np, log_probs, values = self._sample_np(
-                        obs_list[g], rng)
+                        obs_list[g], rng, span)
                     next_obs, rewards, terms, truncs, _ = \
                         self.env_groups[g].step(a_np)
                     done_now = np.logical_or(terms, truncs).astype(np.float32)
@@ -198,8 +205,9 @@ class PPO:
                                    values, log_probs)
                     self._track_episodes(g, rewards, done_now)
                     obs_list[g], dones_list[g] = next_obs, done_now
-                boot = mirror.predict(
-                    np.asarray(obs_list[g], dtype=np.float32))
+                with span("mirror.forward", rows=len(obs_list[g])):
+                    boot = mirror.predict(
+                        np.asarray(obs_list[g], dtype=np.float32))
                 buffers[g].compute_returns(boot[:, na].reshape(-1),
                                            dones_list[g])
             return obs_list, dones_list
@@ -326,7 +334,7 @@ class PPO:
         from ..ensemble import ensure_capacity
         lr = self.model.learner
         if hasattr(lr, "ens") and lr.ens is not None:
-            n0 = int(lr.ens.n_trees)
+            n0 = lr.get_num_trees()
             lr.ens = ensure_capacity(
                 lr.ens, n0 + iters_planned * trees_per_update)
             # host-side tree counter: saves a device fetch per iteration
@@ -336,15 +344,19 @@ class PPO:
         steps = 0
         it = 0
         while steps < total_timesteps:
-            if G == 1:
-                obs_list[0], dones_list[0] = self.collect_rollout(
-                    buffers[0], obs_list[0], dones_list[0], rng)
-            else:
-                obs_list, dones_list = self.collect_rollout_pipelined(
-                    buffers, obs_list, dones_list, rng)
-            self.update(buffers, rng)
-            if self._mirror:
-                self._mirror.sync()
+            # spans (utils/profiling.py): an ``iteration`` holds the
+            # ``rollout``, the ``update`` and the mirror's sync
+            with profiling.span("iteration", it=it):
+                with profiling.span("rollout"):
+                    if G == 1:
+                        obs_list[0], dones_list[0] = self.collect_rollout(
+                            buffers[0], obs_list[0], dones_list[0], rng)
+                    else:
+                        obs_list, dones_list = self.collect_rollout_pipelined(
+                            buffers, obs_list, dones_list, rng)
+                self.update(buffers, rng)
+                if self._mirror:
+                    self._mirror.sync()
             steps += self.n_steps * self.n_envs * G
             it += 1
             ntr = getattr(self.model.learner, "_rl_host_n_trees", None)

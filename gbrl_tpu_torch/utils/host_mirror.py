@@ -39,11 +39,15 @@ from typing import Optional
 import numpy as np
 
 from ..ops.kernels import CSRC, build_dir
+from . import profiling
 
 MIRROR_SRC = CSRC / "mirror.c"
 MIRROR_LIB = "libgbrl_mirror.so"
 # dims of the Adam predictor's per-sample moment arrays (mirror.c)
 ADAM_MAX_OUTPUTS = 256
+# the ensemble fields a sync copies to the host, one ``.cpu()`` each
+TREE_FIELDS = ("feat", "thr", "is_split", "is_numeric", "cat_code",
+               "leaf_values")
 
 
 def _compiler() -> Optional[str]:
@@ -215,26 +219,33 @@ class HostMirror:
     def sync(self) -> int:
         """Copy trees [n_synced, n_trees) and the bias from the learner's
         ensemble: plain slices, one ``.cpu()`` per field.  Returns the number
-        of new trees copied."""
-        ens = self.learner.ens
-        # the host counter and the bias version spare two device reads
-        n = getattr(self.learner, "_rl_host_n_trees", None)
-        if n is None:
-            n = int(ens.n_trees)
-        a = self.n_synced
-        if n > self.cap:
-            self._grow(n)
-        bv = getattr(self.learner, "_bias_version", None)
-        if bv is None or bv != getattr(self, "_seen_bias_version", -1):
-            self.bias = ens.bias.detach().cpu().numpy().astype(
-                np.float32).reshape(self.O)
-            self._seen_bias_version = bv
-        if n > a:
-            host = [getattr(ens, f)[a:n].cpu().numpy() for f in (
-                "feat", "thr", "is_split", "is_numeric", "cat_code",
-                "leaf_values")]
-            self._set_trees(a, *host)
-        return n - a
+        of new trees copied.  Recorded as a ``mirror.sync`` span
+        (utils/profiling.py) with the trees copied."""
+        with profiling.span("mirror.sync") as rec:
+            ens = self.learner.ens
+            # the host counter and the bias version spare two device reads
+            n = getattr(self.learner, "_rl_host_n_trees", None)
+            on_card = ens.bias.is_cuda
+            if n is None:
+                profiling.count_sync("mirror_n_trees", on_card)
+                n = int(ens.n_trees)
+            a = self.n_synced
+            if n > self.cap:
+                self._grow(n)
+            bv = getattr(self.learner, "_bias_version", None)
+            if bv is None or bv != getattr(self, "_seen_bias_version", -1):
+                profiling.count_sync("mirror_bias", on_card)
+                self.bias = ens.bias.detach().cpu().numpy().astype(
+                    np.float32).reshape(self.O)
+                self._seen_bias_version = bv
+            if n > a:
+                profiling.count_sync("mirror_trees", on_card, len(TREE_FIELDS))
+                host = [getattr(ens, f)[a:n].cpu().numpy()
+                        for f in TREE_FIELDS]
+                self._set_trees(a, *host)
+            if rec is not None:
+                rec.attrs["trees"] = n - a
+            return n - a
 
     def append_tree(self, tree: dict) -> None:
         """Append ONE tree already on the host (numpy arrays: the fields of

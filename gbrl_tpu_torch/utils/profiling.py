@@ -9,15 +9,39 @@ reference only has stdout verbose prints, SURVEY §5).
   summary).
 - ``annotate(name)``: torch.profiler.record_function, so custom phases show
   in the trace viewer.
+- ``span(name, **attrs)``: a span inside the program, recorded in memory
+  while a torch profiler runs (``trace`` above, or any
+  ``torch.profiler.profile``) and nothing otherwise.  A record holds the
+  name, start and end on ``time.time_ns()`` (the clock of the profiler's
+  timeline, so device intervals can be put inside spans), its id and its
+  parent's, the attributes and the counts made while it was open.
+  ``records()`` returns them, ``clear()`` empties them.
+- ``count(name, n)``: an always-on counter (``counters()``); while spans
+  record, the innermost open span is credited too.  The program counts
+  ``launch.<kernel>`` (each call that launches a hand-written kernel, as
+  ``ops.kernels.launch_counts``), ``sync.<site>`` (each call that makes
+  the host wait for the card: a read of a CUDA tensor to the host, or a
+  copy from pageable host memory to the card) and ``cache.hit`` /
+  ``cache.delta`` / ``cache.miss`` / ``cache.unkeyed`` (the learners'
+  prediction cache).
 """
 from __future__ import annotations
 
 import contextlib
+import itertools
 import time
 from collections import defaultdict
-from typing import Dict, Iterator
+from typing import Dict, Iterator, List, Optional
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
+
+# records kept before further spans are dropped (and counted as dropped)
+RECORD_CAP = 1 << 20
+# spans that also open a torch.profiler annotation, so a ``trace`` file
+# shows them; the rest (one per env step, the request's spans) stay in
+# memory only: an annotation costs the host tens of microseconds
+ANNOTATED = frozenset({"rollout", "replay", "update", "minibatch", "fit"})
 
 
 @contextlib.contextmanager
@@ -35,6 +59,142 @@ def trace(logdir: str) -> Iterator[None]:
 
 def annotate(name: str):
     return torch.profiler.record_function(name)
+
+
+def recording() -> bool:
+    """Whether spans record: exactly while a torch profiler runs."""
+    return getattr(_autograd_profiler, "_is_profiler_enabled", False)
+
+
+class SpanRecord:
+    """One recorded span; ``t0`` / ``t1`` in ``time.time_ns()``, ``parent``
+    the enclosing span's ``id`` (None at the top), ``counts`` what
+    ``count`` added while the span was open, its children's included."""
+    __slots__ = ("name", "id", "parent", "t0", "t1", "attrs", "counts")
+
+    def __init__(self, name: str, id: int, parent: Optional[int],
+                 attrs: dict):
+        self.name = name
+        self.id = id
+        self.parent = parent
+        self.attrs = attrs
+        self.counts: Dict[str, int] = {}
+        self.t0 = self.t1 = 0
+
+
+class _Open:
+    """The context of one recording span."""
+    __slots__ = ("rec", "owner", "note")
+
+    def __init__(self, owner: "Recorder", rec: SpanRecord):
+        self.owner = owner
+        self.rec = rec
+        self.note = annotate(rec.name) if rec.name in ANNOTATED else None
+
+    def __enter__(self) -> SpanRecord:
+        if self.note is not None:
+            self.note.__enter__()
+        self.owner._stack.append(self.rec)
+        self.rec.t0 = time.time_ns()
+        return self.rec
+
+    def __exit__(self, *exc) -> None:
+        rec = self.rec
+        rec.t1 = time.time_ns()
+        stack = self.owner._stack
+        stack.pop()
+        if stack and rec.counts:
+            up = stack[-1].counts
+            for k, n in rec.counts.items():
+                up[k] = up.get(k, 0) + n
+        self.owner._keep(rec)
+        if self.note is not None:
+            self.note.__exit__(*exc)
+
+
+_OFF = contextlib.nullcontext()
+
+
+def _off(name: str, **attrs):
+    return _OFF
+
+
+class Recorder:
+    """Spans and counters of one process (the module's functions below use
+    one shared recorder)."""
+
+    def __init__(self, cap: int = RECORD_CAP):
+        self.cap = cap
+        self.dropped = 0
+        self._records: List[SpanRecord] = []
+        self._stack: List[SpanRecord] = []
+        self._ids = itertools.count(1)
+        self._counters: Dict[str, int] = {}
+
+    def span(self, name: str, **attrs):
+        """A context manager that records a span while a profiler runs;
+        otherwise a shared do-nothing context."""
+        if not recording():
+            return _OFF
+        parent = self._stack[-1].id if self._stack else None
+        return _Open(self, SpanRecord(name, next(self._ids), parent, attrs))
+
+    def spanner(self):
+        """``span`` while a profiler runs, else a function returning the
+        do-nothing context: loops read the flag once before they start."""
+        return self.span if recording() else _off
+
+    def tag(self, **attrs) -> None:
+        """Add attributes to the innermost open span (none open: nothing)."""
+        if self._stack:
+            self._stack[-1].attrs.update(attrs)
+
+    def count(self, name: str, n: int = 1) -> None:
+        c = self._counters
+        c[name] = c.get(name, 0) + n
+        if self._stack:
+            c = self._stack[-1].counts
+            c[name] = c.get(name, 0) + n
+
+    def _keep(self, rec: SpanRecord) -> None:
+        if len(self._records) < self.cap:
+            self._records.append(rec)
+        else:
+            self.dropped += 1
+
+    def records(self) -> List[SpanRecord]:
+        """The closed spans, in the order they closed."""
+        return list(self._records)
+
+    def counters(self) -> Dict[str, int]:
+        return dict(self._counters)
+
+    def clear(self) -> None:
+        """Forget the records and the dropped count (counters stay)."""
+        self._records.clear()
+        self.dropped = 0
+
+
+RECORDER = Recorder()
+span = RECORDER.span
+spanner = RECORDER.spanner
+tag = RECORDER.tag
+count = RECORDER.count
+records = RECORDER.records
+counters = RECORDER.counters
+clear = RECORDER.clear
+
+
+def dropped() -> int:
+    """Spans not kept since the last ``clear()``: the cap was reached."""
+    return RECORDER.dropped
+
+
+def count_sync(site: str, on_card: bool, n: int = 1) -> None:
+    """Count ``n`` host waits for the card at ``site`` (``sync.<site>``),
+    only where the tensor involved is on a CUDA device."""
+    if on_card:
+        count("sync." + site, n)
 
 
 class StepTimer:
