@@ -66,7 +66,10 @@ Phases (any failure raises; the script then exits nonzero):
   9 tree parity  K6 against its plain version, the K6 path's trees against
              the level path's;
   10-11 RL   PPO and A2C on CartPole on both tree paths, one update phase
-             held against the CPU port with its launch counts;
+             held against the CPU port with its launch counts; PPO's
+             phase as CUDA graph replays bit-equal to the eager loop on
+             the card, with the same launch counts and a replay (or the
+             one eager, captured minibatch of a new shape) a tree;
   12 RL times  update-phase latency on both paths, syncs, rollout rate,
              profiles; K6's call, host and kernel times at the PPO minibatch
              and the bench shape (one device launch per call).
@@ -1420,6 +1423,7 @@ def phase_ppo(rng, dev, seed: int) -> dict:
     from gbrl_tpu_torch.ensemble import ensemble_to_numpy
     from gbrl_tpu_torch.ops import kernels as K
     from gbrl_tpu_torch.rl import jit_update as JU
+    from gbrl_tpu_torch.utils import profiling
     print("[10 PPO]", flush=True)
     steps = PPO_PHASES * PPO_ENVS * PPO_STEPS
     runs = {}
@@ -1456,21 +1460,37 @@ def phase_ppo(rng, dev, seed: int) -> dict:
     algo.model.learner.save(path)
     cfg = algo.model.learner.cfg
 
-    def one_phase(device: str, k6: bool):
+    def one_phase(device: str, k6: bool, graphs: bool = True):
+        """One update phase; ``graphs`` False runs the card's eager loop
+        with its fits recorded (a recording waits for the card, which a
+        graph's capture cannot).  Returns the ensemble, the tree count
+        before, the fits, the launch counts and the ``graph.*`` counts."""
         lr = SharedActorCriticLearner.load(path, device)
         nt0 = lr.get_num_trees()
         K.reset_launch_counts()
-        with tree_path(k6), recorded_fits(JU) as fits:
-            JU.run_ppo_update(lr, obs, act, old_lp, adv, ret, ppo_hyper(),
-                              PPO_EPOCHS, PPO_BATCH,
-                              np.random.default_rng(seed), valid=valid)
+        before = profiling.counters()
+        loop = JU.ppo_update_loop
+        with tree_path(k6), (recorded_fits(JU) if not graphs else
+                             contextlib.nullcontext([])) as fits:
+            if not graphs:
+                JU.ppo_update_loop = JU.eager_update_loop
+            try:
+                JU.run_ppo_update(lr, obs, act, old_lp, adv, ret,
+                                  ppo_hyper(), PPO_EPOCHS, PPO_BATCH,
+                                  np.random.default_rng(seed), valid=valid)
+            finally:
+                JU.ppo_update_loop = loop
         if device == "cuda":
             torch.cuda.synchronize()
-        return ensemble_to_numpy(lr.ens), nt0, fits, dict(K.launch_counts)
+        after = profiling.counters()
+        graph = {k: after.get(k, 0) - before.get(k, 0) for k in
+                 ("graph.capture", "graph.replay", "graph.eager")}
+        return (ensemble_to_numpy(lr.ens), nt0, fits, dict(K.launch_counts),
+                graph)
 
-    cpu, nt0, _, _ = one_phase("cpu", False)
+    cpu, nt0 = one_phase("cpu", False, graphs=False)[:2]
     for label, k6 in (("K6 path", True), ("level path", False)):
-        card, _, fits, counts = one_phase("cuda", k6)
+        card, _, fits, counts, _ = one_phase("cuda", k6, graphs=False)
         want = ((PHASE_TREES, 0, 0) if k6
                 else (0, DEPTH * PHASE_TREES, DEPTH * PHASE_TREES))
         got = (counts["tree_build"], counts["level_histogram"],
@@ -1478,14 +1498,21 @@ def phase_ppo(rng, dev, seed: int) -> dict:
         assert got == want and counts["bucketize"] == PHASE_TREES, counts
         verdict = compare_phase(f"PPO phase {label} vs CPU", cfg, card, cpu,
                                 fits, nt0, PHASE_TREES)
-        again = one_phase("cuda", k6)[0]
-        for k in card:
-            assert np.array_equal(card[k], again[k]), \
-                f"{label}: two update phases differ in {k}"
+        graphs = []
+        for run in range(2):
+            ens, _, _, g_counts, g = one_phase("cuda", k6)
+            assert g_counts == counts, (g_counts, counts)
+            assert g["graph.replay"] + g["graph.eager"] == PHASE_TREES, g
+            assert g["graph.capture"] == g["graph.eager"] <= 1 - run, g
+            for k in card:
+                assert np.array_equal(card[k], ens[k]), \
+                    f"{label}: graph replay {run} differs in {k}"
+            graphs.append(g)
         print(f"  one update phase on the card, {label}: launches K1 "
               f"{counts['bucketize']}, K2 {counts['level_histogram']}, K3 "
               f"{counts['level_score']}, K6 {counts['tree_build']}; against "
-              f"the CPU port: {verdict}; run twice: identical ensembles")
+              f"the CPU port: {verdict}; as graph replays, twice: the eager "
+              f"loop's ensemble and launches ({graphs[0]}, {graphs[1]})")
     return dict(state=path, cfg=cfg, rollout=(obs, act, old_lp, adv, ret,
                                               valid),
                 algo=algo, k6_launches=runs["k6"][1]["tree_build"])
@@ -3026,12 +3053,19 @@ def par_check_ppo(dev, seed: int, ranks: list) -> dict:
             pre = ensemble_from_numpy(sub_dict(n0, key + "pre_"), "cuda")
             nt0 = it * U
 
-            def single():
-                return JU.ppo_update_loop(
+            def single(loop=JU.ppo_update_loop):
+                return loop(
                     cfg, hp, U, pre, t[0], mbd, mb_n.tolist(), t[1], t[2],
                     t[3], t[4], specs, fw, nt0, t[5])[0]
+            # fits are recorded on the eager loop: a recording waits for
+            # the card, which a graph's capture cannot
             with tree_path(k6), recorded_fits(JU) as fits:
-                ref = ensemble_to_numpy(single())
+                ref = ensemble_to_numpy(single(JU.eager_update_loop))
+            with tree_path(k6):
+                replayed = ensemble_to_numpy(single())
+            for k in ref:
+                assert np.array_equal(ref[k], replayed[k]), \
+                    f"16a {path} iteration {it}: graph replay differs in {k}"
             post = sub_dict(n0, key + "post_")
             verdict = compare_phase(f"16a {path} iteration {it}", cfg, ref,
                                     post, fits, nt0, U)

@@ -40,6 +40,22 @@ def write_tree(ens: Ensemble, tree: dict, idx: torch.Tensor) -> Ensemble:
     return ens.replace(**kw)
 
 
+def write_trees(ens: Ensemble, trees: dict, idx: torch.Tensor) -> Ensemble:
+    """Insert U fitted trees at the distinct device indices ``idx`` ([U]
+    int32), each field of ``trees`` stacked [U, ...] (``depth`` [U]): one
+    ``index_copy`` a field, the ensemble that U calls of ``write_tree``
+    give, the old one unchanged."""
+    at = idx.long()
+    kw = {f: torch.index_copy(getattr(ens, f), 0, at,
+                              trees[f].to(getattr(ens, f).dtype))
+          for f in _TREE_FIELDS}
+    kw["depths"] = torch.index_copy(ens.depths, 0, at,
+                                    trees["depth"].to(torch.int32))
+    kw["n_trees"] = torch.maximum(ens.n_trees,
+                                  torch.amax(idx).to(torch.int32) + 1)
+    return ens.replace(**kw)
+
+
 def _cv_adjust(grads: torch.Tensor, mom: torch.Tensor,
                w: torch.Tensor, mesh=None) -> torch.Tensor:
     """alpha-weighted momentum subtraction (fitter.cpp:610-625) given the

@@ -10,6 +10,16 @@ every per-minibatch value stays a device tensor.  Where the JAX package has
 ``jax.jit`` and ``lax.fori_loop``, this is a Python loop that queues its
 launches and returns.
 
+On a CUDA device ``ppo_update_loop`` replays the minibatch body as a
+captured CUDA graph, one replay per minibatch: the body reads static
+device buffers that the host refreshes once per update, a device counter
+replaces the minibatch number and another the tree index, and each tree
+leaves through [U] staging buffers that one batched write puts into the
+ensemble after the loop (``ops.boosting.write_trees``).  The graph runs
+the same kernels in the same order as the eager loop, so the trees are
+the same bits.  CPU tensors, and the sharded loop of
+``parallel/sharded_rl.py``, run eagerly.
+
 Semantics are the torch facade path's (rl/ppo.py ``update``): clipped
 surrogate + entropy bonus on the policy columns, 0.5 * vf_coef * MSE on the
 value column, gradients scaled by the minibatch size as the facade's
@@ -20,17 +30,20 @@ common.utils.clip_grad_norm (reference utils.py:270-295).
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence, Tuple
+from collections import OrderedDict
+from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..config import TreeConfig
 from ..ensemble import Ensemble, ensure_capacity
-from ..ops.boosting import (_lr_columns, _masked_candidates, predict_sgd,
-                            write_tree)
+from ..ops import fit
+from ..ops.boosting import (_TREE_FIELDS, _lr_columns, _masked_candidates,
+                            predict_sgd, write_tree, write_trees)
 from ..ops.candidates import bucketize
 from ..ops.fit import build_tree, standardize_l2
+from ..ops.kernels import launch_counts
 from ..ops.predict import single_tree_leaf_values
 from ..optimizers import OptimizerSpec
 from ..utils import profiling
@@ -117,13 +130,44 @@ def ppo_update_loop(cfg: TreeConfig, hp: PPOHyper, n_updates: int,
     tree only that tree is evaluated on X (leaf values are immutable once
     fit), as ``ops.boosting.fit_loop`` does.  The ensemble must have room
     for ``n_updates`` more trees.  Returns (ensemble, [U] policy entropy of
-    each minibatch, a diagnostic)."""
+    each minibatch, a diagnostic).  On a CUDA device the minibatches
+    replay CUDA graphs (``_GraphSet``); elsewhere ``eager_update_loop``
+    runs them."""
+    if X.device.type != "cuda" or n_updates == 0:
+        return eager_update_loop(cfg, hp, n_updates, ens, X, mb_idx, mb_n,
+                                 actions, old_logp, adv, ret, specs, feat_w,
+                                 n_trees0, valid)
+    g = _graph_set(cfg, hp, specs, n_updates, ens, X, mb_idx, feat_w,
+                   valid is not None)
+    g.load(cfg, specs, ens, X, mb_idx, actions, old_logp, adv, ret, feat_w,
+           n_trees0, valid)
+    span = profiling.spanner()
+    for u in range(n_updates):
+        with span("minibatch", u=u, learner="shared"):
+            g.run(cfg, hp, specs, int(mb_n[u]))
+    idx = torch.arange(n_trees0, n_trees0 + n_updates, dtype=torch.int32,
+                       device=X.device)
+    return write_trees(ens, g.stage, idx), g.ent.clone()
+
+
+def eager_update_loop(cfg: TreeConfig, hp: PPOHyper, n_updates: int,
+                      ens: Ensemble, X: torch.Tensor, mb_idx: torch.Tensor,
+                      mb_n: Sequence[int], actions: torch.Tensor,
+                      old_logp: torch.Tensor, adv: torch.Tensor,
+                      ret: torch.Tensor, specs: Tuple[OptimizerSpec, ...],
+                      feat_w: torch.Tensor, n_trees0: int,
+                      valid: Optional[torch.Tensor] = None
+                      ) -> Tuple[Ensemble, torch.Tensor]:
+    """``ppo_update_loop`` queued launch by launch from the host, one
+    ``write_tree`` a minibatch (the CPU's path, and the card's yardstick
+    for the graphs)."""
     dev = X.device
     mb = mb_idx.shape[1]
     preds_full = predict_sgd(cfg, ens, X, specs, 0, n_trees0)
     rows = torch.arange(mb, device=dev)
     ents = []
     span = profiling.spanner()
+    on_card = dev.type == "cuda"
     for u in range(n_updates):
         with span("minibatch", u=u, learner="shared"):
             idx = mb_idx[u]
@@ -139,19 +183,39 @@ def ppo_update_loop(cfg: TreeConfig, hp: PPOHyper, n_updates: int,
             with span("predict_new"):
                 preds_full = preds_full + tree_prediction(cfg, specs, tree,
                                                           t_idx, X)
+            if on_card:
+                profiling.count("graph.eager")
     return ens, entropy_trace(ents, dev)
 
 
 def ppo_minibatch_step(cfg: TreeConfig, hp: PPOHyper,
                        specs: Tuple[OptimizerSpec, ...],
-                       feat_w: torch.Tensor, ens: Ensemble, t: int, n_u: int,
+                       feat_w: torch.Tensor, ens: Ensemble,
+                       t: Union[int, torch.Tensor], n_u: int,
                        w: torch.Tensor, Xmb: torch.Tensor, pmb: torch.Tensor,
                        act: torch.Tensor, old_logp: torch.Tensor,
                        adv: torch.Tensor, ret: torch.Tensor):
     """One minibatch of the update phase, its rows already gathered: PPO
     gradients from the predictions ``pmb`` -> candidates (K1) -> one tree
-    written at index ``t`` (a host int).  Returns (ensemble, tree, the tree
-    index as a device tensor, the minibatch's mean policy entropy)."""
+    written at index ``t`` (a host int or a device int32 scalar).  Returns
+    (ensemble, tree, the tree index as a device tensor, the minibatch's
+    mean policy entropy)."""
+    tree, t_idx, ent = ppo_minibatch_tree(cfg, hp, specs, feat_w, t, n_u, w,
+                                          Xmb, pmb, act, old_logp, adv, ret)
+    with profiling.span("write"):
+        ens = write_tree(ens, tree, t_idx)
+    return ens, tree, t_idx, ent
+
+
+def ppo_minibatch_tree(cfg: TreeConfig, hp: PPOHyper,
+                       specs: Tuple[OptimizerSpec, ...],
+                       feat_w: torch.Tensor, t: Union[int, torch.Tensor],
+                       n_u: int, w: torch.Tensor, Xmb: torch.Tensor,
+                       pmb: torch.Tensor, act: torch.Tensor,
+                       old_logp: torch.Tensor, adv: torch.Tensor,
+                       ret: torch.Tensor):
+    """``ppo_minibatch_step`` up to its tree, which it does not write:
+    (tree, the tree index as a device tensor, the mean policy entropy)."""
     span = profiling.span
     with span("grads"):
         grads = ppo_minibatch_grads(hp, pmb, act, old_logp, adv, ret, w)
@@ -160,14 +224,135 @@ def ppo_minibatch_step(cfg: TreeConfig, hp: PPOHyper,
         cand_vals = _masked_candidates(cfg, Xmb, n_u)
         Xb = bucketize(Xmb, cand_vals)
     tree = build_tree(cfg, Xb, cand_vals, grads, build, w, feat_w)
-    with span("write"):
-        t_idx = torch.full((), t, dtype=torch.int32, device=Xmb.device)
-        ens = write_tree(ens, tree, t_idx)
+    t_idx = (t if isinstance(t, torch.Tensor) else
+             torch.full((), t, dtype=torch.int32, device=Xmb.device))
     # mean policy entropy of this minibatch (diagnostic)
     logp_all = torch.log_softmax(pmb[:, :hp.n_actions], dim=-1)
     ent = -torch.sum(torch.exp(logp_all) * logp_all, dim=-1)
-    return (ens, tree, t_idx,
-            torch.sum(ent * w) / torch.clamp(torch.sum(w), min=1.0))
+    return tree, t_idx, torch.sum(ent * w) / torch.clamp(torch.sum(w),
+                                                         min=1.0)
+
+
+class _GraphSet:
+    """The static device buffers of one update's shapes and the CUDA graphs
+    of its minibatch body, one per real row count ``n_u`` (a partial last
+    minibatch has its own).  The body reads the rollout, the plan and the
+    predictions from the buffers, gathers its rows with the device counter
+    ``u``, fits tree ``t``, stages the tree and the entropy at row ``u``,
+    adds the tree to the predictions and counts ``u`` and ``t`` on."""
+
+    def __init__(self, ens: Ensemble, X: torch.Tensor, mb_idx: torch.Tensor,
+                 feat_w: torch.Tensor, U: int, valid: bool):
+        dev = X.device
+        B = X.shape[0]
+
+        def empty(shape, dtype):
+            return torch.empty(shape, dtype=dtype, device=dev)
+        self.X = empty(tuple(X.shape), X.dtype)
+        self.plan = empty(tuple(mb_idx.shape), torch.int64)
+        self.act = empty((B,), torch.int64)
+        self.old_logp, self.adv, self.ret = (
+            empty((B,), torch.float32) for _ in range(3))
+        self.valid = empty((B,), torch.float32) if valid else None
+        self.feat_w = empty(tuple(feat_w.shape), feat_w.dtype)
+        self.preds = empty((B, ens.output_dim), torch.float32)
+        self.u = torch.zeros((1,), dtype=torch.int64, device=dev)
+        self.t = torch.zeros((), dtype=torch.int32, device=dev)
+        self.stage = {f: empty((U,) + tuple(getattr(ens, f).shape[1:]),
+                               getattr(ens, f).dtype) for f in _TREE_FIELDS}
+        self.stage["depth"] = empty((U,), torch.int32)
+        self.ent = empty((U,), torch.float32)
+        self.graphs = {}
+
+    def load(self, cfg: TreeConfig, specs: Tuple[OptimizerSpec, ...],
+             ens: Ensemble, X: torch.Tensor, mb_idx: torch.Tensor,
+             actions: torch.Tensor, old_logp: torch.Tensor,
+             adv: torch.Tensor, ret: torch.Tensor, feat_w: torch.Tensor,
+             n_trees0: int, valid: Optional[torch.Tensor]) -> None:
+        """Refresh the static inputs (once per update): the rollout, the
+        plan, the predictions of the ensemble's trees, the counters."""
+        for buf, src in ((self.X, X), (self.plan, mb_idx),
+                         (self.act, actions), (self.old_logp, old_logp),
+                         (self.adv, adv), (self.ret, ret),
+                         (self.feat_w, feat_w), (self.valid, valid)):
+            if buf is not None:
+                buf.copy_(src)
+        self.preds.copy_(predict_sgd(cfg, ens, X, specs, 0, n_trees0))
+        self.u.zero_()
+        self.t.fill_(n_trees0)
+
+    def body(self, cfg: TreeConfig, hp: PPOHyper,
+             specs: Tuple[OptimizerSpec, ...], n_u: int) -> None:
+        idx = torch.index_select(self.plan, 0, self.u)[0]
+        w = (torch.arange(idx.shape[0], device=idx.device)
+             < n_u).to(torch.float32)
+        if self.valid is not None:
+            w = w * self.valid[idx]     # autoreset rows (rl/buffers.py flat)
+        tree, t_idx, ent = ppo_minibatch_tree(
+            cfg, hp, specs, self.feat_w, self.t, n_u, w, self.X[idx],
+            self.preds[idx], self.act[idx], self.old_logp[idx],
+            self.adv[idx], self.ret[idx])
+        with profiling.span("write"):
+            for f, buf in self.stage.items():
+                buf.index_copy_(0, self.u, tree[f].reshape(
+                    (1,) + buf.shape[1:]).to(buf.dtype))
+            self.ent.index_copy_(0, self.u, ent.reshape(1))
+        with profiling.span("predict_new"):
+            self.preds.add_(tree_prediction(cfg, specs, tree, t_idx, self.X))
+        self.u.add_(1)
+        self.t.add_(1)
+
+    def run(self, cfg: TreeConfig, hp: PPOHyper,
+            specs: Tuple[OptimizerSpec, ...], n_u: int) -> None:
+        """One minibatch: a replay, or, the first time ``n_u`` comes, the
+        body run eagerly on a side stream (the warm-up a capture needs)
+        and then captured.  A capture's counts (``launch.<kernel>``) are
+        held back and credited at each replay, as are ``launch_counts``."""
+        entry = self.graphs.get(n_u)
+        if entry is not None:
+            graph, counted = entry
+            graph.replay()
+            for name, n in counted.items():
+                profiling.count(name, n)
+                if name.startswith("launch."):
+                    launch_counts[name[len("launch."):]] += n
+            profiling.count("graph.replay")
+            return
+        stream = torch.cuda.current_stream(self.X.device)
+        side = torch.cuda.Stream(self.X.device)
+        side.wait_stream(stream)
+        with torch.cuda.stream(side):
+            self.body(cfg, hp, specs, n_u)
+        stream.wait_stream(side)
+        profiling.count("graph.eager")
+        graph = torch.cuda.CUDAGraph()
+        before = dict(launch_counts)
+        with profiling.collect() as counted, torch.cuda.graph(graph):
+            self.body(cfg, hp, specs, n_u)
+        launch_counts.update(before)
+        self.graphs[n_u] = (graph, counted)
+        profiling.count("graph.capture")
+
+
+# the graph sets by everything a capture bakes in (never by a learner or an
+# ensemble); the oldest goes past GRAPH_CACHE
+GRAPH_CACHE = 8
+_GRAPHS: "OrderedDict[tuple, _GraphSet]" = OrderedDict()
+
+
+def _graph_set(cfg: TreeConfig, hp: PPOHyper,
+               specs: Tuple[OptimizerSpec, ...], U: int, ens: Ensemble,
+               X: torch.Tensor, mb_idx: torch.Tensor, feat_w: torch.Tensor,
+               valid: bool) -> _GraphSet:
+    key = (X.device, cfg, hp, specs, U, tuple(X.shape), X.dtype,
+           tuple(mb_idx.shape), tuple(feat_w.shape), feat_w.dtype, valid,
+           fit._DISABLE_FUSED_TREE)
+    g = _GRAPHS.get(key)
+    if g is None:
+        g = _GRAPHS[key] = _GraphSet(ens, X, mb_idx, feat_w, U, valid)
+        if len(_GRAPHS) > GRAPH_CACHE:
+            _GRAPHS.popitem(last=False)
+    return g
 
 
 def tree_prediction(cfg: TreeConfig, specs: Tuple[OptimizerSpec, ...],

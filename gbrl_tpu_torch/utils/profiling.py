@@ -23,7 +23,10 @@ reference only has stdout verbose prints, SURVEY §5).
   the host wait for the card: a read of a CUDA tensor to the host, or a
   copy from pageable host memory to the card) and ``cache.hit`` /
   ``cache.delta`` / ``cache.miss`` / ``cache.unkeyed`` (the learners'
-  prediction cache).
+  prediction cache) and ``graph.capture`` / ``graph.replay`` /
+  ``graph.eager`` (the PPO update's minibatches: captured as a CUDA graph,
+  replayed, or run eagerly on the card; ``rl/jit_update.py``).
+  ``collect()`` holds counts back from a block (a graph's capture).
 """
 from __future__ import annotations
 
@@ -130,6 +133,7 @@ class Recorder:
         self._stack: List[SpanRecord] = []
         self._ids = itertools.count(1)
         self._counters: Dict[str, int] = {}
+        self._collecting: Optional[Dict[str, int]] = None
 
     def span(self, name: str, **attrs):
         """A context manager that records a span while a profiler runs;
@@ -150,11 +154,26 @@ class Recorder:
             self._stack[-1].attrs.update(attrs)
 
     def count(self, name: str, n: int = 1) -> None:
+        if self._collecting is not None:
+            c = self._collecting
+            c[name] = c.get(name, 0) + n
+            return
         c = self._counters
         c[name] = c.get(name, 0) + n
         if self._stack:
             c = self._stack[-1].counts
             c[name] = c.get(name, 0) + n
+
+    @contextlib.contextmanager
+    def collect(self) -> Iterator[Dict[str, int]]:
+        """Counts made inside the block go to the dict it yields, not to
+        the counters or the spans: work that is recorded now and runs
+        later (a CUDA graph's capture) is credited where it runs."""
+        outer, self._collecting = self._collecting, {}
+        try:
+            yield self._collecting
+        finally:
+            self._collecting = outer
 
     def _keep(self, rec: SpanRecord) -> None:
         if len(self._records) < self.cap:
@@ -180,6 +199,7 @@ span = RECORDER.span
 spanner = RECORDER.spanner
 tag = RECORDER.tag
 count = RECORDER.count
+collect = RECORDER.collect
 records = RECORDER.records
 counters = RECORDER.counters
 clear = RECORDER.clear
