@@ -133,15 +133,18 @@ def sac_train_step(acfg: TreeConfig, ccfg: TreeConfig, hp: SACHyper,
     N = obs.shape[0]
 
     # ---- target: y = R + disc * (1 - d) * (min_i Q_i^target - alpha lp')
-    th_next = predict_sgd(acfg, actor_ens, next_obs, actor_specs, 0,
-                          actor_ens.capacity)
-    na, nlogp = sample_squashed(th_next[:, :A], th_next[:, A:], eps_next)
-    tqs = []
-    for i, ens in enumerate(critic_ens):
-        th_t = predict_sgd(ccfg, ens, next_obs, critic_specs, 0, prefixes[i])
-        tqs.append(q_torch(*_critic_wb(hp, th_t), na, hp.q_func_type))
-    qmin_t = torch.amin(torch.stack(tqs, 0), dim=0)
-    y = (rewards + discs * (1.0 - dones) * (qmin_t - alpha * nlogp)).detach()
+    with profiling.span("target"):
+        th_next = predict_sgd(acfg, actor_ens, next_obs, actor_specs, 0,
+                              actor_ens.capacity)
+        na, nlogp = sample_squashed(th_next[:, :A], th_next[:, A:], eps_next)
+        tqs = []
+        for i, ens in enumerate(critic_ens):
+            th_t = predict_sgd(ccfg, ens, next_obs, critic_specs, 0,
+                               prefixes[i])
+            tqs.append(q_torch(*_critic_wb(hp, th_t), na, hp.q_func_type))
+        qmin_t = torch.amin(torch.stack(tqs, 0), dim=0)
+        y = (rewards + discs * (1.0 - dones)
+             * (qmin_t - alpha * nlogp)).detach()
 
     # ---- critic boosting steps: gradients of 0.5 * (Q - y)^2 w.r.t. theta
     new_critics, closses = [], []
@@ -196,62 +199,75 @@ def run_sac_train_step(algo, obs: np.ndarray, actions: np.ndarray,
     one packed block, draw the noise from ``gen`` (a generator on the
     learners' device), run the step, read the stats back (the one host
     synchronisation), then apply the ensemble-prefix target update and the
-    temperature update."""
+    temperature update.  Spans (utils/profiling.py): a ``minibatch``
+    (learner "sac") holds ``update.stage`` (the counters, the packed copy
+    and the noise), the step's ``target``, ``candidates``, ``fit`` and
+    ``write`` spans and ``update.readback``; rl/sac.py opens the train
+    event's ``update`` around its steps."""
     actor_lr = algo.actor.learner
     critic_lrs = [c.learner for c in algo.critics]
     hp = SACHyper(act_dim=algo.act_dim, q_func_type=algo.q_func_type,
                   max_grad_norm=algo.max_grad_norm or 0.0)
+    on_card = actor_lr.torch_device.type == "cuda"
+    step = actor_lr._rl_host_n_trees
+    with profiling.span("minibatch", u=step, learner="sac"):
+        with profiling.span("update.stage"):
+            # host-side tree counters: int(ens.n_trees) would wait for the
+            # card
+            for lr in [actor_lr] + critic_lrs:
+                nt = lr._rl_host_n_trees
+                if nt is None:
+                    profiling.count_sync("sac_n_trees", on_card)
+                    nt = int(lr.ens.n_trees)
+                lr.ens = ensure_capacity(lr.ens, nt + 1)
+                lr._rl_host_n_trees = nt + 1
 
-    # host-side tree counters: int(ens.n_trees) would wait for the card
-    for lr in [actor_lr] + critic_lrs:
-        nt = lr._rl_host_n_trees
-        if nt is None:
-            nt = int(lr.ens.n_trees)
-        lr.ens = ensure_capacity(lr.ens, nt + 1)
-        lr._rl_host_n_trees = nt + 1
+            actor_lr._infer_mapping_from(obs)
+            assert actor_lr.vocab is None, \
+                "the fused SAC step takes numerical features only"
+            N = len(obs)
+            # one copy to the device: obs, actions, rewards, next_obs,
+            # dones, discs, alpha, the target prefixes and the feature
+            # weights
+            parts = [np.asarray(x, np.float32).reshape(N, -1) for x in
+                     (obs, actions, rewards, next_obs, dones, discs)]
+            parts += [np.float32([[algo.alpha]]),
+                      np.float32([[c.target_prefix for c in algo.critics]]),
+                      actor_lr._host_feature_weights()[None, :]]
+            pack = _to_device(np.concatenate([p.reshape(-1) for p in parts]),
+                              actor_lr.torch_device)
+            X, act, rew, X_next, done, disc, alpha, prefixes, fw = (
+                t.reshape(p.shape) for t, p in
+                zip(torch.split(pack, [p.size for p in parts]), parts))
+            eps_next = torch.randn((N, algo.act_dim), generator=gen,
+                                   device=X.device)
+            eps_cur = torch.randn((N, algo.act_dim), generator=gen,
+                                  device=X.device)
+        new_actor, new_critics, stats = sac_train_step(
+            actor_lr.cfg, critic_lrs[0].cfg, hp,
+            (actor_lr.specs, critic_lrs[0].specs), actor_lr.ens,
+            tuple(lr.ens for lr in critic_lrs), prefixes[0].to(torch.int32),
+            X, act, rew[:, 0], X_next, done[:, 0], disc[:, 0], alpha[0, 0],
+            fw[0], eps_next, eps_cur)
 
-    actor_lr._infer_mapping_from(obs)
-    assert actor_lr.vocab is None, \
-        "the fused SAC step takes numerical features only"
-    N = len(obs)
-    # one copy to the device: obs, actions, rewards, next_obs, dones,
-    # discs, alpha, the target prefixes and the feature weights
-    parts = [np.asarray(x, np.float32).reshape(N, -1) for x in
-             (obs, actions, rewards, next_obs, dones, discs)]
-    parts += [np.float32([[algo.alpha]]),
-              np.float32([[c.target_prefix for c in algo.critics]]),
-              actor_lr._host_feature_weights()[None, :]]
-    pack = _to_device(np.concatenate([p.reshape(-1) for p in parts]),
-                      actor_lr.torch_device)
-    X, act, rew, X_next, done, disc, alpha, prefixes, fw = (
-        t.reshape(p.shape)
-        for t, p in zip(torch.split(pack, [p.size for p in parts]), parts))
-    eps_next = torch.randn((N, algo.act_dim), generator=gen,
-                           device=X.device)
-    eps_cur = torch.randn((N, algo.act_dim), generator=gen, device=X.device)
-    new_actor, new_critics, stats = sac_train_step(
-        actor_lr.cfg, critic_lrs[0].cfg, hp,
-        (actor_lr.specs, critic_lrs[0].specs), actor_lr.ens,
-        tuple(lr.ens for lr in critic_lrs), prefixes[0].to(torch.int32), X,
-        act, rew[:, 0], X_next, done[:, 0], disc[:, 0], alpha[0, 0], fw[0],
-        eps_next, eps_cur)
+        actor_lr.ens = new_actor
+        actor_lr.total_iterations += 1
+        actor_lr._pred_cache = None
+        for lr, ens, critic in zip(critic_lrs, new_critics, algo.critics):
+            lr.ens = ens
+            lr.total_iterations += 1
+            lr._pred_cache = None
+            if lr._rl_host_n_trees % critic.target_update_interval == 0:
+                critic.target_prefix = lr._rl_host_n_trees
 
-    actor_lr.ens = new_actor
-    actor_lr.total_iterations += 1
-    actor_lr._pred_cache = None
-    for lr, ens, critic in zip(critic_lrs, new_critics, algo.critics):
-        lr.ens = ens
-        lr.total_iterations += 1
-        lr._pred_cache = None
-        if lr._rl_host_n_trees % critic.target_update_interval == 0:
-            critic.target_prefix = lr._rl_host_n_trees
-
-    vals = torch.stack([stats[k] for k in STATS]).cpu().numpy()
-    out = {k: float(v) for k, v in zip(STATS, vals)}
-    if algo.auto_alpha:
-        algo.alpha_opt.zero_grad()
-        alpha_loss = -(algo.log_alpha
-                       * (out["logp_mean"] + algo.target_entropy))
-        alpha_loss.backward()
-        algo.alpha_opt.step()
+        with profiling.span("update.readback"):
+            profiling.count_sync("sac_readback", on_card)
+            vals = torch.stack([stats[k] for k in STATS]).cpu().numpy()
+        out = {k: float(v) for k, v in zip(STATS, vals)}
+        if algo.auto_alpha:
+            algo.alpha_opt.zero_grad()
+            alpha_loss = -(algo.log_alpha
+                           * (out["logp_mean"] + algo.target_entropy))
+            alpha_loss.backward()
+            algo.alpha_opt.step()
     return out

@@ -38,6 +38,7 @@ from torch.distributions import Normal
 
 from ..models.actor import GaussianActor
 from ..models.critic import ContinuousCritic
+from ..utils import profiling
 from .buffers import NStepAccumulator, ReplayBuffer
 
 LOG_STD_MIN, LOG_STD_MAX = -20.0, 2.0
@@ -227,12 +228,14 @@ class SAC:
         return squashed_gaussian_sample(mu, log_std, eps)
 
     def _act(self, obs: np.ndarray, gen: th.Generator,
-             deterministic: bool = False) -> np.ndarray:
+             deterministic: bool = False,
+             span=profiling.span) -> np.ndarray:
         mirror = self._get_mirror()
         if mirror is not None:
             # mirror predictions include the ensemble bias (log_std_init
             # tail included), same as rl/awr.py _act
-            theta = mirror.predict(np.asarray(obs, dtype=np.float32))
+            with span("mirror.forward", rows=len(obs)):
+                theta = mirror.predict(np.asarray(obs, dtype=np.float32))
             A = self.act_dim
             mu = theta[:, :A]
             if deterministic:
@@ -332,31 +335,49 @@ class SAC:
                 "alpha": self.alpha}
 
     # --------------------------------------------------------------- driver
-    def learn(self, total_timesteps: int, seed: int = 0):
-        rng = np.random.default_rng(seed)
-        gen = th.Generator().manual_seed(seed)
-        # preallocate ensemble capacity for the whole run: one growth up
-        # front instead of a reallocation at every power-of-two crossing
-        from ..ensemble import ensure_capacity
-        planned = (total_timesteps // max(self.n_envs * self.train_freq, 1)
-                   + 1) * self.gradient_steps
-        for model in [self.actor] + self.critics:
-            lr = model.learner
-            n0 = lr.get_num_trees()
-            lr.ens = ensure_capacity(lr.ens, n0 + planned)
-            lr._rl_host_n_trees = n0
-        obs, _ = self.env.reset(seed=seed)
-        prev_done = np.zeros(self.n_envs, dtype=bool)
-        steps, it = 0, 0
-        while steps < total_timesteps:
-            if steps < self.learning_starts:
+    def _jump_critic_bias(self) -> None:
+        """Jump the critics' value scale at once (the GBT analogue of AWR's
+        set_bias_from_targets): the scalar tail of theta starts at 0 while
+        V is O(r_mean / (1 - gamma)), a gap that bootstrapping closes only
+        over thousands of trees.  Geometric-series scale with the observed
+        terminal rate: v0 = r_mean for bandits (d = 1), r / (1 - gamma^n)
+        for continuing tasks (d = 0); rewards are n-step sums and discs
+        gamma^k, so the same fixed point applies."""
+        n0 = len(self.buffer)
+        r_mean = float(np.mean(self.buffer.rewards[:n0]))
+        d_mean = float(np.mean(self.buffer.dones[:n0]))
+        g_mean = float(np.mean(self.buffer.discs[:n0]))
+        v0 = r_mean / max(1.0 - g_mean * (1.0 - d_mean), 1e-3)
+        for c in self.critics:
+            # a read of the bias and a copy from pageable memory
+            profiling.count_sync("sac_bias", self._device.type == "cuda", 2)
+            b = np.asarray(c.learner.get_bias(), dtype=np.float32).copy()
+            b[-1] = v0
+            c.learner.set_bias(b)
+        self._critic_bias_set = True
+
+    def _rollout(self, obs: np.ndarray, total_timesteps: int, rng,
+                 gen: th.Generator) -> np.ndarray:
+        """One train event's vector env steps: up to ``train_freq`` of
+        them, fewer where the run's total ends first.  Uniform actions
+        before ``learning_starts``, the actor's mirror after; valid rows
+        feed the per-env n-step accumulator and the replay.  Returns the
+        last observations; the event's observations and actions stay in
+        ``_last_rollout``."""
+        span = profiling.spanner()
+        O, Acts = [], []
+        prev_done = self._prev_done
+        while self._steps < total_timesteps:
+            if self._steps < self.learning_starts:
                 a = rng.uniform(-1.0, 1.0,
                                 (self.n_envs, self.act_dim)
                                 ).astype(np.float32)
             else:
-                a = self._act(obs, gen)
+                a = self._act(obs, gen, span=span)
             next_obs, rew, term, trunc, _ = self.env.step(self._env_action(a))
             done = np.logical_or(term, trunc)
+            O.append(obs)
+            Acts.append(a)
             # NextStep autoreset: the step after an episode end returns the
             # reset obs with reward 0 and an ignored action; that transition
             # must not enter the replay.  Valid rows feed the per-env n-step
@@ -385,45 +406,77 @@ class SAC:
                     self._ep_ret[i] = 0.0
             prev_done = done
             obs = next_obs
-            steps += self.n_envs
-            it += 1
-            if (steps >= self.learning_starts
+            self._steps += self.n_envs
+            self._it += 1
+            if (self._steps >= self.learning_starts
                     and not self._critic_bias_set
                     and len(self.buffer) >= self.batch_size):
-                # jump the critics' value scale at once (the GBT analogue of
-                # AWR's set_bias_from_targets): the scalar tail of theta
-                # starts at 0 while V is O(r_mean / (1 - gamma)), a gap that
-                # bootstrapping closes only over thousands of trees.
-                # Geometric-series scale with the observed terminal rate:
-                # v0 = r_mean for bandits (d = 1), r / (1 - gamma^n) for
-                # continuing tasks (d = 0); rewards are n-step sums and
-                # discs gamma^k, so the same fixed point applies
-                n0 = len(self.buffer)
-                r_mean = float(np.mean(self.buffer.rewards[:n0]))
-                d_mean = float(np.mean(self.buffer.dones[:n0]))
-                g_mean = float(np.mean(self.buffer.discs[:n0]))
-                v0 = r_mean / max(1.0 - g_mean * (1.0 - d_mean), 1e-3)
-                for c in self.critics:
-                    b = np.asarray(c.learner.get_bias(),
-                                   dtype=np.float32).copy()
-                    b[-1] = v0
-                    c.learner.set_bias(b)
-                self._critic_bias_set = True
-            if (steps >= self.learning_starts
-                    and it % self.train_freq == 0
-                    and len(self.buffer) >= self.batch_size):
-                for _ in range(self.gradient_steps):
-                    info = self.train_step(gen, rng)
-                if self._get_mirror() is not None:
-                    self._mirror.sync()
-                if self.log_interval and it % self.log_interval == 0:
-                    mean100 = (np.mean(self.episode_rewards[-100:])
-                               if self.episode_rewards else float("nan"))
-                    print(f"steps {steps} trees "
-                          f"{self.actor.get_num_trees()} "
-                          f"ep_rew_mean {mean100:.1f} "
-                          f"closs {info['critic_loss']:.3f} "
-                          f"alpha {info['alpha']:.3f}")
+                self._jump_critic_bias()
+            if self._it % self.train_freq == 0:
+                break
+        self._prev_done = prev_done
+        self._last_rollout = (np.asarray(O, np.float32),
+                              np.asarray(Acts, np.float32))
+        return obs
+
+    def _train(self, gen: th.Generator, rng) -> Dict[str, float]:
+        """One train event's ``gradient_steps`` steps; returns the last
+        step's statistics."""
+        with profiling.span("update", algo="sac"):
+            for _ in range(self.gradient_steps):
+                info = self.train_step(gen, rng)
+        return info
+
+    def _sync_mirror(self) -> None:
+        if self._get_mirror() is not None:
+            self._mirror.sync()
+
+    def learn(self, total_timesteps: int, seed: int = 0):
+        rng = np.random.default_rng(seed)
+        gen = th.Generator().manual_seed(seed)
+        # the envs reset below: windows still pending from an earlier run
+        # would join its (obs, action) pairs to this run's rewards
+        self._nstep = NStepAccumulator(self.n_envs, self.n_step, self.gamma)
+        self.curve = []           # per train event (steps, mean100, trees)
+        # preallocate ensemble capacity for the whole run: one growth up
+        # front instead of a reallocation at every power-of-two crossing
+        from ..ensemble import ensure_capacity
+        planned = (total_timesteps // max(self.n_envs * self.train_freq, 1)
+                   + 1) * self.gradient_steps
+        for model in [self.actor] + self.critics:
+            lr = model.learner
+            n0 = lr.get_num_trees()
+            lr.ens = ensure_capacity(lr.ens, n0 + planned)
+            lr._rl_host_n_trees = n0
+        obs, _ = self.env.reset(seed=seed)
+        self._prev_done = np.zeros(self.n_envs, dtype=bool)
+        self._steps, self._it = 0, 0
+        event = 0
+        while self._steps < total_timesteps:
+            # spans (utils/profiling.py): an ``iteration`` holds the
+            # ``rollout``, the ``update`` and the mirror's sync
+            with profiling.span("iteration", it=event):
+                with profiling.span("rollout"):
+                    obs = self._rollout(obs, total_timesteps, rng, gen)
+                trained = (self._steps >= self.learning_starts
+                           and self._it % self.train_freq == 0
+                           and len(self.buffer) >= self.batch_size)
+                if trained:
+                    info = self._train(gen, rng)
+                    self._sync_mirror()
+            event += 1
+            self.curve.append(dict(
+                steps=self._steps, mean_reward_100=self.mean_reward(),
+                trees=self.actor.learner._rl_host_n_trees))
+            if (trained and self.log_interval
+                    and self._it % self.log_interval == 0):
+                mean100 = (np.mean(self.episode_rewards[-100:])
+                           if self.episode_rewards else float("nan"))
+                print(f"steps {self._steps} trees "
+                      f"{self.actor.get_num_trees()} "
+                      f"ep_rew_mean {mean100:.1f} "
+                      f"closs {info['critic_loss']:.3f} "
+                      f"alpha {info['alpha']:.3f}")
         return self
 
     def mean_reward(self, last: int = 100) -> float:
