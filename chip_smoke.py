@@ -76,10 +76,13 @@ Phases (any failure raises; the script then exits nonzero):
   13 AWR     on ``VecPendulum`` at examples/awr_vs_ref.py's width (8 envs,
              rollouts of 2048, 60 critic + 20 actor trees on minibatches of
              2048, depth 4, 256 bins, oblivious): AWR.learn on both tree
-             paths; one run_awr_update from one state on the card (both
-             paths) held against the CPU port tree for tree, launches
-             asserted (K1 = K5 = 80; K2 = K3 = 320 or K6 = 80; K4 = 0); the
-             update phase's p50 / p90, trees/s, host syncs (0 inside
+             paths, with its graph captures and replays; one
+             run_awr_update from one state on the card (both paths), the
+             eager loop held against the CPU port tree for tree, launches
+             asserted (K1 = K5 = 80; K2 = K3 = 320 or K6 = 80; K4 = 0), and
+             as CUDA graph replays (a replay a tree, one capture a learner
+             and key) bit-equal to the eager loop twice, with its launches;
+             the update phase's p50 / p90, trees/s, host syncs (0 inside
              awr_update_loop, asserted), device busy share; K1-K3 and K5 at
              the update's shapes (N = 2048, F = 3, O = 1);
   14 SAC     at examples/sac_pendulum.py's defaults (linear Q, twin
@@ -1860,29 +1863,44 @@ def launches_of(counts: dict) -> str:
 
 def phase_awr(dev, seed: int, smi: str) -> dict:
     """Phase 13: AWR.learn on Pendulum on the card on both tree paths, with
-    its launch counts; one run_awr_update from one carried state on the
-    card (both paths) against the CPU port, tree for tree, with its launch
-    counts; the update phase's wall time, trees/s, host synchronisations
-    and the device's busy share; K1-K3 and K5 at the shapes the update
-    gave them.  Returns those kernel times and the update's launches."""
+    its launch and graph counts; one run_awr_update from one carried state
+    on the card (both paths): the eager loop against the CPU port, tree for
+    tree, with its launch counts, and the graph replays against the eager
+    loop, bit for bit; the update phase's wall time, trees/s, host
+    synchronisations and the device's busy share; K1-K3 and K5 at the
+    shapes the update gave them.  Returns those kernel times and the
+    update's launches."""
     import torch
     from gbrl_tpu_torch import GBTLearner
     from gbrl_tpu_torch.ensemble import ensemble_to_numpy, ensure_capacity
     from gbrl_tpu_torch.ops import kernels as K
     from gbrl_tpu_torch.rl import jit_awr as JA
     from gbrl_tpu_torch.rl import jit_sac as JS
+    from gbrl_tpu_torch.utils import profiling
+
+    def graph_counts(before: dict) -> dict:
+        after = profiling.counters()
+        return {k: after.get(k, 0) - before.get(k, 0) for k in
+                ("graph.capture", "graph.replay", "graph.eager")}
     print(f"[13 AWR] {smi}", flush=True)
     t_phase = time.perf_counter()
     steps = AWR_ITERS * AWR_STEPS
     for path in ("level", "k6"):
         algo = new_awr()
         K.reset_launch_counts()
+        before = profiling.counters()
         t0 = time.perf_counter()
         with tree_path(path == "k6"):
             algo.learn(steps, seed=seed)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         counts = dict(K.launch_counts)
+        graphs = graph_counts(before)
+        assert (graphs["graph.replay"] + graphs["graph.eager"]
+                == AWR_ITERS * AWR_TREES), graphs
+        # one capture a learner and plan shape: the first iteration's
+        # minibatches are smaller (its replay lacks the autoreset rows)
+        assert graphs["graph.capture"] == graphs["graph.eager"] <= 4, graphs
         na, nc = algo.actor.get_num_trees(), algo.critic.get_num_trees()
         assert (na, nc) == (AWR_ITERS * AWR_ACTOR_UPDATES,
                             AWR_ITERS * AWR_CRITIC_UPDATES), (na, nc)
@@ -1895,7 +1913,7 @@ def phase_awr(dev, seed: int, smi: str) -> dict:
               f"{nc} critic trees, {len(rewards)} episodes with finite "
               f"rewards, mean-100 {algo.mean_reward():.2f}, rollouts and "
               f"values served by the mirrors' C library; {secs:.2f} s; "
-              f"launches {launches_of(counts)}")
+              f"launches {launches_of(counts)}; {graphs}")
     # one update phase from the last run's final state and replay
     replay = algo._recompute_replay()
     tmp = tempfile.mkdtemp()
@@ -1909,26 +1927,41 @@ def phase_awr(dev, seed: int, smi: str) -> dict:
             getattr(a, m).learner = GBTLearner.load(p, device)
         return a
 
-    def one_update(device: str, k6: bool, record: bool = False):
+    def one_update(device: str, k6: bool, record: bool = False,
+                   graphs: bool = True):
+        """One update; ``graphs`` False runs the card's eager loop with its
+        fits (and, with ``record``, its kernel calls) recorded: a
+        recording waits for the card, which a graph's capture cannot."""
         a = loaded(device)
         nt0 = {m: getattr(a, m).get_num_trees() for m in paths}
         K.reset_launch_counts()
-        with tree_path(k6), recorded_fits(JS) as fits, (
+        before = profiling.counters()
+        loop = JA.awr_update_loop
+        with tree_path(k6), (recorded_fits(JS) if not graphs else
+                             contextlib.nullcontext([])) as fits, (
                 recorded_kernel_calls() if record
                 else contextlib.nullcontext()) as calls:
-            JA.run_awr_update(a, *replay[:3], np.random.default_rng(seed),
-                              replay[3])
+            if not graphs:
+                JA.awr_update_loop = (
+                    lambda *a, rows=0: JA.eager_awr_update_loop(*a))
+            try:
+                JA.run_awr_update(a, *replay[:3],
+                                  np.random.default_rng(seed), replay[3])
+            finally:
+                JA.awr_update_loop = loop
         if device == "cuda":
             torch.cuda.synchronize()
         ens = {m: ensemble_to_numpy(getattr(a, m).learner.ens)
                for m in paths}
         cfgs = {m: getattr(a, m).learner.cfg for m in paths}
-        return ens, nt0, fits, dict(K.launch_counts), calls, cfgs
+        return (ens, nt0, fits, dict(K.launch_counts), calls, cfgs,
+                graph_counts(before))
 
-    cpu, nt0, _, _, _, cfgs = one_update("cpu", False)
+    cpu, nt0, _, _, _, cfgs, _ = one_update("cpu", False, graphs=False)
     update_launches, calls = {}, None
     for label, k6 in (("K6 path", True), ("level path", False)):
-        card, _, fits, counts, rec, _ = one_update("cuda", k6, not k6)
+        card, _, fits, counts, rec, _, _ = one_update("cuda", k6, not k6,
+                                                      graphs=False)
         assert launch_tuple(counts) == awr_launches(AWR_TREES, k6), counts
         verdicts = [compare_phase(f"AWR {m} {label} vs CPU", cfgs[m],
                                   card[m], cpu[m], fs, nt0[m], k)
@@ -1937,11 +1970,24 @@ def phase_awr(dev, seed: int, smi: str) -> dict:
                          AWR_CRITIC_UPDATES),
                         ("actor", fits[AWR_CRITIC_UPDATES:],
                          AWR_ACTOR_UPDATES))]
+        graphs = []
+        for run in range(2):
+            ens, _, _, g_counts, _, _, g = one_update("cuda", k6)
+            assert g_counts == counts, (g_counts, counts)
+            assert g["graph.replay"] + g["graph.eager"] == AWR_TREES, g
+            assert g["graph.capture"] == g["graph.eager"] <= 2 * (1 - run), g
+            for m in paths:
+                for k in card[m]:
+                    assert np.array_equal(card[m][k], ens[m][k]), \
+                        f"{label}: graph replay {run} differs in {m} {k}"
+            graphs.append(g)
         print(f"  one run_awr_update on the card, {label} (replay "
               f"{len(replay[0])} rows, {AWR_CRITIC_UPDATES} critic + "
               f"{AWR_ACTOR_UPDATES} actor trees on minibatches of "
-              f"{AWR_BATCH}): launches {launches_of(counts)}; against the "
-              f"CPU port: critic {verdicts[0]}, actor {verdicts[1]}")
+              f"{AWR_BATCH}): launches {launches_of(counts)}; the eager "
+              f"loop against the CPU port: critic {verdicts[0]}, actor "
+              f"{verdicts[1]}; as graph replays, twice: the eager loop's "
+              f"ensembles and launches ({graphs[0]}, {graphs[1]})")
         update_launches[label] = counts
         if not k6:
             calls = rec
@@ -1993,7 +2039,7 @@ def phase_awr(dev, seed: int, smi: str) -> dict:
                 (lrs["actor"].specs, lrs["critic"].specs),
                 (AWR_CRITIC_UPDATES, AWR_ACTOR_UPDATES),
                 start["actor"][0], start["critic"][0], Xn, d[0], d[1],
-                d[2], plans[0], plans[1], fw))
+                d[2], plans[0], plans[1], fw, rows=a.buffer_size))
         n_run = sync_count(lambda: phase(k6))
         print(f"  host synchronisations, {'K6' if k6 else 'level'} path: "
               f"{n_loop} inside awr_update_loop, {n_run} per run_awr_update")

@@ -10,6 +10,17 @@ loss traces stay on the device.  Where the JAX package has ``jax.jit`` and
 ``lax.fori_loop``, this is a Python loop that queues its launches and
 returns.
 
+On a CUDA device ``awr_update_loop`` replays the critic step body and the
+actor step body as captured CUDA graphs, one replay a tree
+(``_AWRGraphs``): the bodies read static device buffers that the host
+refreshes once an update, device counters replace the step numbers, and
+each step predicts over a graph-owned working copy of its learner's
+ensemble (K5, the trees of this update included) and writes its tree into
+that copy in place; the learners get new ensembles copied from it after
+the loop.  The graphs run the same kernels in the same order as the eager
+loop, so the trees are the same bits.  CPU tensors, and the sharded loop
+of ``parallel/sharded_rl.py``, run eagerly.
+
 Semantics mirror rl/awr.py ``learn``: critic minibatch regression on
 bootstrapped returns (one tree per step), then actor advantage-weighted
 regression with batch-standardized advantages (population std, as the
@@ -24,11 +35,13 @@ import numpy as np
 import torch
 
 from ..config import TreeConfig
-from ..ensemble import Ensemble, ensure_capacity
-from ..ops.boosting import predict_sgd
+from ..ensemble import FIELDS, Ensemble, ensure_capacity
+from ..ops import fit
+from ..ops.boosting import _TREE_FIELDS, predict_sgd
 from ..optimizers import OptimizerSpec
 from ..utils import profiling
-from .jit_sac import _boost, clip_as_jax
+from .jit_sac import _boost, boost_tree, clip_as_jax
+from .jit_update import cached_graphs, replay_or_capture
 
 
 class AWRHyper(NamedTuple):
@@ -53,16 +66,55 @@ def awr_update_loop(acfg: TreeConfig, ccfg: TreeConfig, hp: AWRHyper,
                     actor_ens: Ensemble, critic_ens: Ensemble,
                     X: torch.Tensor, acts: torch.Tensor, rets: torch.Tensor,
                     advs: torch.Tensor, cmb_idx: torch.Tensor,
-                    amb_idx: torch.Tensor, feat_w: torch.Tensor):
+                    amb_idx: torch.Tensor, feat_w: torch.Tensor,
+                    rows: int = 0):
     """X [B, F] replay observations; acts [B, A]; rets [B] TD(lambda)
     critic targets; advs [B] TD(lambda) advantages (rl/awr.py
     ``_recompute_replay``); cmb_idx [Kc, mb] / amb_idx [Ka, mb] int64
     minibatch row plans on the device.  The ensembles must have room for
     Kc / Ka more trees.  Returns (actor_ens, critic_ens,
-    (critic_loss_trace, actor_loss_trace)), the traces device tensors."""
+    (critic_loss_trace, actor_loss_trace)), the traces device tensors.
+
+    On a CUDA device the steps replay CUDA graphs (``_AWRGraphs``), whose
+    static replay holds max(B, ``rows``) rows: a replay that grows up to
+    ``rows`` keeps its graphs.  Elsewhere ``eager_awr_update_loop`` runs
+    the steps."""
+    Kc, Ka = n_updates
+    if X.device.type != "cuda" or Kc + Ka == 0:
+        return eager_awr_update_loop(acfg, ccfg, hp, specs, n_updates,
+                                     actor_ens, critic_ens, X, acts, rets,
+                                     advs, cmb_idx, amb_idx, feat_w)
+    actor_specs, critic_specs = specs
+    g = _awr_graphs(acfg, ccfg, hp, specs, n_updates, actor_ens, critic_ens,
+                    X, acts, cmb_idx, amb_idx, feat_w, max(rows, X.shape[0]))
+    g.load(actor_ens, critic_ens, X, acts, rets, advs, cmb_idx, amb_idx,
+           feat_w)
+    dev = X.device
+    span = profiling.spanner()
+    for learner, K, body in (
+            ("critic", Kc, lambda: g.critic_body(ccfg, critic_specs)),
+            ("actor", Ka, lambda: g.actor_body(acfg, hp, actor_specs))):
+        for k in range(K):
+            with span("minibatch", u=k, learner=learner):
+                replay_or_capture(g.graphs, learner, dev, body)
+    return g.result()
+
+
+def eager_awr_update_loop(acfg: TreeConfig, ccfg: TreeConfig, hp: AWRHyper,
+                          specs: Tuple[Tuple[OptimizerSpec, ...], ...],
+                          n_updates: Tuple[int, int],
+                          actor_ens: Ensemble, critic_ens: Ensemble,
+                          X: torch.Tensor, acts: torch.Tensor,
+                          rets: torch.Tensor, advs: torch.Tensor,
+                          cmb_idx: torch.Tensor, amb_idx: torch.Tensor,
+                          feat_w: torch.Tensor):
+    """``awr_update_loop`` queued launch by launch from the host, one
+    ``write_tree`` a step (the CPU's path, and the card's yardstick for
+    the graphs)."""
     actor_specs, critic_specs = specs
     Kc, Ka = n_updates
     dev = X.device
+    on_card = dev.type == "cuda"
     span = profiling.spanner()
     ctrace = []
     for k in range(Kc):
@@ -71,6 +123,8 @@ def awr_update_loop(acfg: TreeConfig, ccfg: TreeConfig, hp: AWRHyper,
             critic_ens, loss = awr_critic_step(ccfg, critic_specs,
                                                critic_ens, feat_w, X[idx],
                                                rets[idx])
+            if on_card:
+                profiling.count("graph.eager")
         ctrace.append(loss)
     atrace = []
     for k in range(Ka):
@@ -79,6 +133,8 @@ def awr_update_loop(acfg: TreeConfig, ccfg: TreeConfig, hp: AWRHyper,
             actor_ens, loss = awr_actor_step(acfg, hp, actor_specs,
                                              actor_ens, feat_w, X[idx],
                                              acts[idx], advs[idx])
+            if on_card:
+                profiling.count("graph.eager")
         atrace.append(loss)
     return actor_ens, critic_ens, (_trace(ctrace, dev), _trace(atrace, dev))
 
@@ -88,12 +144,8 @@ def awr_critic_step(ccfg: TreeConfig, critic_specs, critic_ens: Ensemble,
                     r: torch.Tensor):
     """One critic regression tree on a minibatch (rows already gathered).
     Returns (critic ensemble, the minibatch's loss)."""
-    with profiling.span("grads"):
-        v = predict_sgd(ccfg, critic_ens, Xmb, critic_specs, 0,
-                        critic_ens.capacity)[:, 0]
-        g = (v - r)[:, None]          # d/dv[0.5 * mse] * n
-    critic_ens = _boost(ccfg, critic_ens, Xmb, g, feat_w)
-    return critic_ens, 0.5 * torch.mean((v - r) ** 2)
+    g, loss = _critic_grads(ccfg, critic_specs, critic_ens, Xmb, r)
+    return _boost(ccfg, critic_ens, Xmb, g, feat_w), loss
 
 
 def awr_actor_step(acfg: TreeConfig, hp: AWRHyper, actor_specs,
@@ -104,6 +156,17 @@ def awr_actor_step(acfg: TreeConfig, hp: AWRHyper, actor_specs,
     with profiling.span("grads"):
         g, loss = _actor_grads(acfg, hp, actor_specs, actor_ens, Xmb, a, adv)
     return _boost(acfg, actor_ens, Xmb, g, feat_w), loss.detach()
+
+
+def _critic_grads(ccfg: TreeConfig, critic_specs, critic_ens: Ensemble,
+                  Xmb: torch.Tensor, r: torch.Tensor):
+    """The critic's per-sample boosting gradients on a minibatch and its
+    loss."""
+    with profiling.span("grads"):
+        v = predict_sgd(ccfg, critic_ens, Xmb, critic_specs, 0,
+                        critic_ens.capacity)[:, 0]
+        # d/dv[0.5 * mse] * n
+        return (v - r)[:, None], 0.5 * torch.mean((v - r) ** 2)
 
 
 def _actor_grads(acfg: TreeConfig, hp: AWRHyper, actor_specs,
@@ -146,6 +209,113 @@ def _actor_grads(acfg: TreeConfig, hp: AWRHyper, actor_specs,
     return g, loss
 
 
+class _AWRGraphs:
+    """The static device buffers of one update's shapes and the CUDA graphs
+    of its two step bodies, the critic's and the actor's.  The replay sits
+    in buffers of ``rows`` rows whose first B a load fills (the plans index
+    below B), so a replay that grows keeps its graphs.  Each learner's
+    ensemble has a working copy that its body reads through K5 and writes
+    each new tree into, in place, at the copy's device ``n_trees``; the
+    device counters ``uc`` / ``ua`` take the place of the step numbers and
+    stage each step's loss."""
+
+    def __init__(self, actor_ens: Ensemble, critic_ens: Ensemble, rows: int,
+                 X: torch.Tensor, acts: torch.Tensor, cmb_idx: torch.Tensor,
+                 amb_idx: torch.Tensor, feat_w: torch.Tensor,
+                 n_updates: Tuple[int, int]):
+        dev = X.device
+
+        def zeros(shape, dtype=torch.float32):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+        self.X = zeros((rows, X.shape[1]), X.dtype)
+        self.acts = zeros((rows,) + tuple(acts.shape[1:]))
+        self.rets, self.advs = zeros((rows,)), zeros((rows,))
+        self.cplan = zeros(tuple(cmb_idx.shape), torch.int64)
+        self.aplan = zeros(tuple(amb_idx.shape), torch.int64)
+        self.feat_w = torch.empty_like(feat_w)
+        self.actor, self.critic = (
+            Ensemble(**{f: torch.empty_like(getattr(e, f)) for f in FIELDS})
+            for e in (actor_ens, critic_ens))
+        self.uc, self.ua = zeros((1,), torch.int64), zeros((1,), torch.int64)
+        self.ctrace, self.atrace = (zeros((max(K, 1),)) for K in n_updates)
+        self.graphs = {}
+
+    def load(self, actor_ens: Ensemble, critic_ens: Ensemble,
+             X: torch.Tensor, acts: torch.Tensor, rets: torch.Tensor,
+             advs: torch.Tensor, cmb_idx: torch.Tensor, amb_idx: torch.Tensor,
+             feat_w: torch.Tensor) -> None:
+        """Refresh the static inputs (once an update): the replay's first B
+        rows, the plans, both working copies, the counters and traces."""
+        B = X.shape[0]
+        for buf, src in ((self.X[:B], X), (self.acts[:B], acts),
+                         (self.rets[:B], rets), (self.advs[:B], advs),
+                         (self.cplan, cmb_idx), (self.aplan, amb_idx),
+                         (self.feat_w, feat_w)):
+            buf.copy_(src)
+        for work, ens in ((self.actor, actor_ens), (self.critic, critic_ens)):
+            for f in FIELDS:
+                getattr(work, f).copy_(getattr(ens, f))
+        for t in (self.uc, self.ua, self.ctrace, self.atrace):
+            t.zero_()
+
+    def critic_body(self, ccfg: TreeConfig, critic_specs) -> None:
+        idx = torch.index_select(self.cplan, 0, self.uc)[0]
+        Xmb = self.X[idx]
+        g, loss = _critic_grads(ccfg, critic_specs, self.critic, Xmb,
+                                self.rets[idx])
+        tree = boost_tree(ccfg, Xmb, g, self.feat_w)
+        with profiling.span("write"):
+            _write_in_place(self.critic, tree)
+            self.ctrace.index_copy_(0, self.uc, loss.reshape(1))
+        self.uc.add_(1)
+
+    def actor_body(self, acfg: TreeConfig, hp: AWRHyper, actor_specs) -> None:
+        idx = torch.index_select(self.aplan, 0, self.ua)[0]
+        Xmb = self.X[idx]
+        with profiling.span("grads"):
+            g, loss = _actor_grads(acfg, hp, actor_specs, self.actor, Xmb,
+                                   self.acts[idx], self.advs[idx])
+        tree = boost_tree(acfg, Xmb, g, self.feat_w)
+        with profiling.span("write"):
+            _write_in_place(self.actor, tree)
+            self.atrace.index_copy_(0, self.ua, loss.detach().reshape(1))
+        self.ua.add_(1)
+
+    def result(self):
+        """(actor ensemble, critic ensemble, (critic trace, actor trace)),
+        each a copy: the next load overwrites the buffers."""
+        def copy(work: Ensemble) -> Ensemble:
+            return Ensemble(**{f: getattr(work, f).clone() for f in FIELDS})
+        return (copy(self.actor), copy(self.critic),
+                (self.ctrace.clone(), self.atrace.clone()))
+
+
+def _write_in_place(ens: Ensemble, tree: dict) -> None:
+    """``write_tree(ens, tree, ens.n_trees)`` into ``ens``'s own tensors."""
+    at = ens.n_trees.reshape(1).long()
+    for f in _TREE_FIELDS:
+        buf = getattr(ens, f)
+        buf.index_copy_(0, at, tree[f][None].to(buf.dtype))
+    ens.depths.index_copy_(0, at, tree["depth"].reshape(1).to(torch.int32))
+    ens.n_trees.add_(1)
+
+
+def _awr_graphs(acfg: TreeConfig, ccfg: TreeConfig, hp: AWRHyper, specs,
+                n_updates: Tuple[int, int], actor_ens: Ensemble,
+                critic_ens: Ensemble, X: torch.Tensor, acts: torch.Tensor,
+                cmb_idx: torch.Tensor, amb_idx: torch.Tensor,
+                feat_w: torch.Tensor, rows: int) -> _AWRGraphs:
+    """The graph set of everything a capture bakes in, the ensembles'
+    capacities among it (never a learner or an ensemble)."""
+    key = ("awr", X.device, acfg, ccfg, hp, specs, n_updates, rows,
+           X.shape[1], X.dtype, tuple(acts.shape[1:]), tuple(cmb_idx.shape),
+           tuple(amb_idx.shape), tuple(feat_w.shape), feat_w.dtype,
+           actor_ens.capacity, critic_ens.capacity, fit._DISABLE_FUSED_TREE)
+    return cached_graphs(key, lambda: _AWRGraphs(
+        actor_ens, critic_ens, rows, X, acts, cmb_idx, amb_idx, feat_w,
+        n_updates))
+
+
 def run_awr_update(algo, r_obs: np.ndarray, r_act: np.ndarray,
                    r_ret: np.ndarray, rng, r_adv: np.ndarray) -> None:
     """Host wrapper: draw the minibatch plans from ``rng`` (critic first,
@@ -153,8 +323,9 @@ def run_awr_update(algo, r_obs: np.ndarray, r_act: np.ndarray,
     run the loop, update both learners in place.
 
     The JAX package pads the replay to a power of two to keep its jit
-    signatures stable; nothing here is compiled per shape, and the plans
-    never index past B, so the replay is copied as it is.  Spans
+    signatures stable; here the plans never index past B, so the replay is
+    copied as it is, and on the card the graphs hold it in buffers of
+    ``buffer_size`` rows, so its growth captures nothing new.  Spans
     (utils/profiling.py): ``update`` holds ``update.stage`` (everything
     before the loop) and a ``minibatch`` a tree."""
     with profiling.span("update", algo="awr"):
@@ -204,7 +375,8 @@ def run_awr_update(algo, r_obs: np.ndarray, r_act: np.ndarray,
             actor_lr.cfg, critic_lr.cfg, hp,
             (actor_lr.specs, critic_lr.specs), (Kc, Ka), actor_lr.ens,
             critic_lr.ens, Xn, pack[:, :A], pack[:, A], pack[:, A + 1],
-            plans[:len(cmb)], plans[len(cmb):], feat_w)
+            plans[:len(cmb)], plans[len(cmb):], feat_w,
+            rows=algo.buffer_size)
         actor_lr.total_iterations += Ka
         actor_lr._pred_cache = None
         critic_lr.total_iterations += Kc

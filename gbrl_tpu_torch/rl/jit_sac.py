@@ -88,15 +88,21 @@ def _boost(cfg: TreeConfig, ens: Ensemble, X: torch.Tensor,
            grads: torch.Tensor, feat_w: torch.Tensor) -> Ensemble:
     """Append one tree fit on ``grads`` (numeric features, the full batch,
     candidates from this batch) at device index ``n_trees``."""
+    tree = boost_tree(cfg, X, grads, feat_w)
+    with profiling.span("write"):
+        return write_tree(ens, tree, ens.n_trees)
+
+
+def boost_tree(cfg: TreeConfig, X: torch.Tensor, grads: torch.Tensor,
+               feat_w: torch.Tensor) -> dict:
+    """The tree ``_boost`` appends, not yet written."""
     N = X.shape[0]
     w = torch.ones((N,), dtype=torch.float32, device=X.device)
     build = standardize_l2(grads, w) if cfg.score == "l2" else grads
     with profiling.span("candidates"):
         cand_vals = _masked_candidates(cfg, X, N)
         Xb = bucketize(X, cand_vals)
-    tree = build_tree(cfg, Xb, cand_vals, grads, build, w, feat_w)
-    with profiling.span("write"):
-        return write_tree(ens, tree, ens.n_trees)
+    return build_tree(cfg, Xb, cand_vals, grads, build, w, feat_w)
 
 
 def _critic_wb(hp: SACHyper, theta: torch.Tensor):

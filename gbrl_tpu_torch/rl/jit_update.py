@@ -31,7 +31,7 @@ common.utils.clip_grad_norm (reference utils.py:270-295).
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import NamedTuple, Optional, Sequence, Tuple, Union
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -304,40 +304,61 @@ class _GraphSet:
 
     def run(self, cfg: TreeConfig, hp: PPOHyper,
             specs: Tuple[OptimizerSpec, ...], n_u: int) -> None:
-        """One minibatch: a replay, or, the first time ``n_u`` comes, the
-        body run eagerly on a side stream (the warm-up a capture needs)
-        and then captured.  A capture's counts (``launch.<kernel>``) are
-        held back and credited at each replay, as are ``launch_counts``."""
-        entry = self.graphs.get(n_u)
-        if entry is not None:
-            graph, counted = entry
-            graph.replay()
-            for name, n in counted.items():
-                profiling.count(name, n)
-                if name.startswith("launch."):
-                    launch_counts[name[len("launch."):]] += n
-            profiling.count("graph.replay")
-            return
-        stream = torch.cuda.current_stream(self.X.device)
-        side = torch.cuda.Stream(self.X.device)
-        side.wait_stream(stream)
-        with torch.cuda.stream(side):
-            self.body(cfg, hp, specs, n_u)
-        stream.wait_stream(side)
-        profiling.count("graph.eager")
-        graph = torch.cuda.CUDAGraph()
-        before = dict(launch_counts)
-        with profiling.collect() as counted, torch.cuda.graph(graph):
-            self.body(cfg, hp, specs, n_u)
-        launch_counts.update(before)
-        self.graphs[n_u] = (graph, counted)
-        profiling.count("graph.capture")
+        """One minibatch: a replay of the graph of ``n_u`` rows, captured
+        the first time ``n_u`` comes (``replay_or_capture``)."""
+        replay_or_capture(self.graphs, n_u, self.X.device,
+                          lambda: self.body(cfg, hp, specs, n_u))
+
+
+def replay_or_capture(graphs: dict, key, dev: torch.device,
+                      body: Callable[[], None]) -> None:
+    """Replay ``graphs[key]``, or, the first time ``key`` comes, run
+    ``body`` eagerly on a side stream (the warm-up a capture needs) and
+    then capture it into ``graphs[key]``.  A capture's counts
+    (``launch.<kernel>``) are held back and credited at each replay, as
+    are ``launch_counts``; ``graph.replay``, ``graph.eager`` and
+    ``graph.capture`` count what ran."""
+    entry = graphs.get(key)
+    if entry is not None:
+        graph, counted = entry
+        graph.replay()
+        for name, n in counted.items():
+            profiling.count(name, n)
+            if name.startswith("launch."):
+                launch_counts[name[len("launch."):]] += n
+        profiling.count("graph.replay")
+        return
+    stream = torch.cuda.current_stream(dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(stream)
+    with torch.cuda.stream(side):
+        body()
+    stream.wait_stream(side)
+    profiling.count("graph.eager")
+    graph = torch.cuda.CUDAGraph()
+    before = dict(launch_counts)
+    with profiling.collect() as counted, torch.cuda.graph(graph):
+        body()
+    launch_counts.update(before)
+    graphs[key] = (graph, counted)
+    profiling.count("graph.capture")
 
 
 # the graph sets by everything a capture bakes in (never by a learner or an
-# ensemble); the oldest goes past GRAPH_CACHE
+# ensemble), PPO's and AWR's (rl/jit_awr.py); the oldest goes past
+# GRAPH_CACHE
 GRAPH_CACHE = 8
-_GRAPHS: "OrderedDict[tuple, _GraphSet]" = OrderedDict()
+_GRAPHS: "OrderedDict[tuple, object]" = OrderedDict()
+
+
+def cached_graphs(key: tuple, make: Callable[[], object]):
+    """The graph set of ``key``, made by ``make`` the first time."""
+    g = _GRAPHS.get(key)
+    if g is None:
+        g = _GRAPHS[key] = make()
+        if len(_GRAPHS) > GRAPH_CACHE:
+            _GRAPHS.popitem(last=False)
+    return g
 
 
 def _graph_set(cfg: TreeConfig, hp: PPOHyper,
@@ -347,12 +368,8 @@ def _graph_set(cfg: TreeConfig, hp: PPOHyper,
     key = (X.device, cfg, hp, specs, U, tuple(X.shape), X.dtype,
            tuple(mb_idx.shape), tuple(feat_w.shape), feat_w.dtype, valid,
            fit._DISABLE_FUSED_TREE)
-    g = _GRAPHS.get(key)
-    if g is None:
-        g = _GRAPHS[key] = _GraphSet(ens, X, mb_idx, feat_w, U, valid)
-        if len(_GRAPHS) > GRAPH_CACHE:
-            _GRAPHS.popitem(last=False)
-    return g
+    return cached_graphs(key, lambda: _GraphSet(ens, X, mb_idx, feat_w, U,
+                                                valid))
 
 
 def tree_prediction(cfg: TreeConfig, specs: Tuple[OptimizerSpec, ...],
