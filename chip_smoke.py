@@ -67,9 +67,10 @@ Phases (any failure raises; the script then exits nonzero):
              the level path's;
   10-11 RL   PPO and A2C on CartPole on both tree paths, one update phase
              held against the CPU port with its launch counts; PPO's
-             phase as CUDA graph replays bit-equal to the eager loop on
-             the card, with the same launch counts and a replay (or the
-             one eager, captured minibatch of a new shape) a tree;
+             phase as CUDA graph replays bit-equal to its steps run as
+             plain calls on the card, with the same launch counts and a
+             replay (or the one warm-up, captured minibatch of a new
+             shape) a tree;
   12 RL times  update-phase latency on both paths, syncs, rollout rate,
              profiles; K6's call, host and kernel times at the PPO minibatch
              and the bench shape (one device launch per call).
@@ -77,14 +78,14 @@ Phases (any failure raises; the script then exits nonzero):
              rollouts of 2048, 60 critic + 20 actor trees on minibatches of
              2048, depth 4, 256 bins, oblivious): AWR.learn on both tree
              paths, with its graph captures and replays; one
-             run_awr_update from one state on the card (both paths), the
-             eager loop held against the CPU port tree for tree, launches
+             run_awr_update from one state on the card (both paths), its
+             plain calls held against the CPU port tree for tree, launches
              asserted (K1 = K5 = 80; K2 = K3 = 320 or K6 = 80; K4 = 0), and
              as CUDA graph replays (a replay a tree, one capture a learner
-             and key) bit-equal to the eager loop twice, with its launches;
-             the update phase's p50 / p90, trees/s, host syncs (0 inside
-             awr_update_loop, asserted), device busy share; K1-K3 and K5 at
-             the update's shapes (N = 2048, F = 3, O = 1);
+             and key) bit-equal to the plain calls twice, with their
+             launches; the update phase's p50 / p90, trees/s, host syncs
+             (0 inside awr_update_loop, asserted), device busy share; K1-K3
+             and K5 at the update's shapes (N = 2048, F = 3, O = 1);
   14 SAC     at examples/sac_pendulum.py's defaults (linear Q, twin
              critics, 10-step targets, batch 256): SAC.learn, launches
              asserted per train step (K1 = 3, K2 = K3 = 12, K5 = 8); one
@@ -1270,6 +1271,21 @@ def tree_path(k6: bool):
 
 
 @contextlib.contextmanager
+def plain_steps():
+    """The fused updates' steps called as plain functions on the card
+    (``rl/graphs.py`` ``run_step`` swapped): the yardstick of the graph
+    replays, and the way to record fits, which wait for the card and so
+    cannot run under a capture."""
+    from gbrl_tpu_torch.rl import graphs
+    real = graphs.run_step
+    graphs.run_step = lambda sets, key, dev, body: body()
+    try:
+        yield
+    finally:
+        graphs.run_step = real
+
+
+@contextlib.contextmanager
 def recorded_fits(module):
     """Record the inputs of every ``build_tree`` call that ``module`` makes,
     as numpy (for the near-tie check of trees that differ); yields the
@@ -1464,25 +1480,21 @@ def phase_ppo(rng, dev, seed: int) -> dict:
     cfg = algo.model.learner.cfg
 
     def one_phase(device: str, k6: bool, graphs: bool = True):
-        """One update phase; ``graphs`` False runs the card's eager loop
-        with its fits recorded (a recording waits for the card, which a
-        graph's capture cannot).  Returns the ensemble, the tree count
-        before, the fits, the launch counts and the ``graph.*`` counts."""
+        """One update phase; ``graphs`` False runs its steps as plain
+        calls with their fits recorded (a recording waits for the card,
+        which a graph's capture cannot).  Returns the ensemble, the tree
+        count before, the fits, the launch counts and the ``graph.*``
+        counts."""
         lr = SharedActorCriticLearner.load(path, device)
         nt0 = lr.get_num_trees()
         K.reset_launch_counts()
         before = profiling.counters()
-        loop = JU.ppo_update_loop
         with tree_path(k6), (recorded_fits(JU) if not graphs else
-                             contextlib.nullcontext([])) as fits:
-            if not graphs:
-                JU.ppo_update_loop = JU.eager_update_loop
-            try:
-                JU.run_ppo_update(lr, obs, act, old_lp, adv, ret,
-                                  ppo_hyper(), PPO_EPOCHS, PPO_BATCH,
-                                  np.random.default_rng(seed), valid=valid)
-            finally:
-                JU.ppo_update_loop = loop
+                             contextlib.nullcontext([])) as fits, (
+                plain_steps() if not graphs else contextlib.nullcontext()):
+            JU.run_ppo_update(lr, obs, act, old_lp, adv, ret, ppo_hyper(),
+                              PPO_EPOCHS, PPO_BATCH,
+                              np.random.default_rng(seed), valid=valid)
         if device == "cuda":
             torch.cuda.synchronize()
         after = profiling.counters()
@@ -1514,8 +1526,8 @@ def phase_ppo(rng, dev, seed: int) -> dict:
         print(f"  one update phase on the card, {label}: launches K1 "
               f"{counts['bucketize']}, K2 {counts['level_histogram']}, K3 "
               f"{counts['level_score']}, K6 {counts['tree_build']}; against "
-              f"the CPU port: {verdict}; as graph replays, twice: the eager "
-              f"loop's ensemble and launches ({graphs[0]}, {graphs[1]})")
+              f"the CPU port: {verdict}; as graph replays, twice: the plain "
+              f"calls' ensemble and launches ({graphs[0]}, {graphs[1]})")
     return dict(state=path, cfg=cfg, rollout=(obs, act, old_lp, adv, ret,
                                               valid),
                 algo=algo, k6_launches=runs["k6"][1]["tree_build"])
@@ -1864,9 +1876,9 @@ def launches_of(counts: dict) -> str:
 def phase_awr(dev, seed: int, smi: str) -> dict:
     """Phase 13: AWR.learn on Pendulum on the card on both tree paths, with
     its launch and graph counts; one run_awr_update from one carried state
-    on the card (both paths): the eager loop against the CPU port, tree for
-    tree, with its launch counts, and the graph replays against the eager
-    loop, bit for bit; the update phase's wall time, trees/s, host
+    on the card (both paths): its steps as plain calls against the CPU port,
+    tree for tree, with their launch counts, and the graph replays against
+    the plain calls, bit for bit; the update phase's wall time, trees/s, host
     synchronisations and the device's busy share; K1-K3 and K5 at the
     shapes the update gave them.  Returns those kernel times and the
     update's launches."""
@@ -1929,26 +1941,20 @@ def phase_awr(dev, seed: int, smi: str) -> dict:
 
     def one_update(device: str, k6: bool, record: bool = False,
                    graphs: bool = True):
-        """One update; ``graphs`` False runs the card's eager loop with its
-        fits (and, with ``record``, its kernel calls) recorded: a
+        """One update; ``graphs`` False runs its steps as plain calls with
+        their fits (and, with ``record``, their kernel calls) recorded: a
         recording waits for the card, which a graph's capture cannot."""
         a = loaded(device)
         nt0 = {m: getattr(a, m).get_num_trees() for m in paths}
         K.reset_launch_counts()
         before = profiling.counters()
-        loop = JA.awr_update_loop
         with tree_path(k6), (recorded_fits(JS) if not graphs else
                              contextlib.nullcontext([])) as fits, (
                 recorded_kernel_calls() if record
-                else contextlib.nullcontext()) as calls:
-            if not graphs:
-                JA.awr_update_loop = (
-                    lambda *a, rows=0: JA.eager_awr_update_loop(*a))
-            try:
-                JA.run_awr_update(a, *replay[:3],
-                                  np.random.default_rng(seed), replay[3])
-            finally:
-                JA.awr_update_loop = loop
+                else contextlib.nullcontext()) as calls, (
+                plain_steps() if not graphs else contextlib.nullcontext()):
+            JA.run_awr_update(a, *replay[:3], np.random.default_rng(seed),
+                              replay[3])
         if device == "cuda":
             torch.cuda.synchronize()
         ens = {m: ensemble_to_numpy(getattr(a, m).learner.ens)
@@ -1984,9 +1990,9 @@ def phase_awr(dev, seed: int, smi: str) -> dict:
         print(f"  one run_awr_update on the card, {label} (replay "
               f"{len(replay[0])} rows, {AWR_CRITIC_UPDATES} critic + "
               f"{AWR_ACTOR_UPDATES} actor trees on minibatches of "
-              f"{AWR_BATCH}): launches {launches_of(counts)}; the eager "
-              f"loop against the CPU port: critic {verdicts[0]}, actor "
-              f"{verdicts[1]}; as graph replays, twice: the eager loop's "
+              f"{AWR_BATCH}): launches {launches_of(counts)}; the plain "
+              f"calls against the CPU port: critic {verdicts[0]}, actor "
+              f"{verdicts[1]}; as graph replays, twice: the plain calls' "
               f"ensembles and launches ({graphs[0]}, {graphs[1]})")
         update_launches[label] = counts
         if not k6:
@@ -3099,14 +3105,14 @@ def par_check_ppo(dev, seed: int, ranks: list) -> dict:
             pre = ensemble_from_numpy(sub_dict(n0, key + "pre_"), "cuda")
             nt0 = it * U
 
-            def single(loop=JU.ppo_update_loop):
-                return loop(
+            def single():
+                return JU.ppo_update_loop(
                     cfg, hp, U, pre, t[0], mbd, mb_n.tolist(), t[1], t[2],
                     t[3], t[4], specs, fw, nt0, t[5])[0]
-            # fits are recorded on the eager loop: a recording waits for
-            # the card, which a graph's capture cannot
-            with tree_path(k6), recorded_fits(JU) as fits:
-                ref = ensemble_to_numpy(single(JU.eager_update_loop))
+            # fits are recorded on plain calls: a recording waits for the
+            # card, which a graph's capture cannot
+            with tree_path(k6), recorded_fits(JU) as fits, plain_steps():
+                ref = ensemble_to_numpy(single())
             with tree_path(k6):
                 replayed = ensemble_to_numpy(single())
             for k in ref:

@@ -24,8 +24,9 @@ from ..common.utils import (CategoryVocab, NumericalData, ensure_2d,
                             preprocess_features, to_numpy)
 from ..ensemble import (FIELDS, Ensemble, ensemble_from_numpy,
                         ensemble_to_numpy, ensure_capacity, init_ensemble)
-from ..ops.boosting import boost_step, fit_loop, predict_sgd
-from ..ops.predict import single_tree_leaf_values, weighted_leaf_sum
+from ..ops.boosting import (boost_step, fit_loop, predict_sgd,
+                            tree_prediction)
+from ..ops.predict import weighted_leaf_sum
 from ..ops.shap_device import ensemble_shap_device
 from ..ops.shap_refcompat import ensemble_shap_ref_compat
 from ..optimizers import OptimizerSpec, adam_delta, scheduler_lr, sgd_coeff
@@ -87,15 +88,8 @@ def _predict_one_tree(cfg, ens: Ensemble, Xn, specs, t: int) -> torch.Tensor:
     tree = dict(feat=ens.feat[t], thr=ens.thr[t], cat_code=ens.cat_code[t],
                 is_split=ens.is_split[t], is_numeric=ens.is_numeric[t],
                 leaf_values=ens.leaf_values[t])
-    v = single_tree_leaf_values(cfg, tree, Xn)               # [N, O]
-    O = cfg.output_dim
-    j = torch.arange(O, device=Xn.device)
     tt = torch.tensor(t, dtype=torch.int32, device=Xn.device)
-    coeff = torch.zeros((O,), dtype=torch.float32, device=Xn.device)
-    for spec in specs:
-        mask = ((j >= spec.start_idx) & (j < spec.stop_idx)).to(torch.float32)
-        coeff = coeff - scheduler_lr(spec, tt) * mask
-    return v * coeff[None, :]
+    return tree_prediction(cfg, specs, tree, tt, Xn)
 
 
 class GBTLearner(BaseLearner):

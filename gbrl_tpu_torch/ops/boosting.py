@@ -28,31 +28,22 @@ _TREE_FIELDS = ("feat", "thr", "cat_code", "is_split", "is_numeric",
 
 
 def write_tree(ens: Ensemble, tree: dict, idx: torch.Tensor) -> Ensemble:
-    """Insert one fitted tree at device index ``idx`` (an int32 scalar
-    tensor): a new Ensemble, the old one unchanged (copies share it)."""
-    at = idx.reshape(1).long()
+    """Insert fitted trees at device indices: one tree at ``idx`` an int32
+    scalar tensor, or U trees at ``idx`` [U] distinct int32 indices, each
+    field of ``tree`` then stacked [U, ...] (``depth`` [U]).  One
+    ``index_copy`` a field: a new Ensemble, the old one unchanged (copies
+    share it)."""
+    one = idx.dim() == 0
+    at = idx.reshape(-1).long()
     kw = {f: torch.index_copy(getattr(ens, f), 0, at,
-                              tree[f][None].to(getattr(ens, f).dtype))
+                              (tree[f][None] if one else tree[f])
+                              .to(getattr(ens, f).dtype))
           for f in _TREE_FIELDS}
     kw["depths"] = torch.index_copy(ens.depths, 0, at,
-                                    tree["depth"].reshape(1).to(torch.int32))
-    kw["n_trees"] = torch.maximum(ens.n_trees, idx.to(torch.int32) + 1)
-    return ens.replace(**kw)
-
-
-def write_trees(ens: Ensemble, trees: dict, idx: torch.Tensor) -> Ensemble:
-    """Insert U fitted trees at the distinct device indices ``idx`` ([U]
-    int32), each field of ``trees`` stacked [U, ...] (``depth`` [U]): one
-    ``index_copy`` a field, the ensemble that U calls of ``write_tree``
-    give, the old one unchanged."""
-    at = idx.long()
-    kw = {f: torch.index_copy(getattr(ens, f), 0, at,
-                              trees[f].to(getattr(ens, f).dtype))
-          for f in _TREE_FIELDS}
-    kw["depths"] = torch.index_copy(ens.depths, 0, at,
-                                    trees["depth"].to(torch.int32))
-    kw["n_trees"] = torch.maximum(ens.n_trees,
-                                  torch.amax(idx).to(torch.int32) + 1)
+                                    tree["depth"].reshape(at.shape)
+                                    .to(torch.int32))
+    top = idx if one else torch.amax(idx)
+    kw["n_trees"] = torch.maximum(ens.n_trees, top.to(torch.int32) + 1)
     return ens.replace(**kw)
 
 
@@ -155,6 +146,15 @@ def _lr_columns(specs: Sequence[OptimizerSpec], O: int,
         mask = ((j >= spec.start_idx) & (j < spec.stop_idx)).to(torch.float32)
         coeff = coeff - scheduler_lr(spec, t) * mask
     return coeff
+
+
+def tree_prediction(cfg: TreeConfig, specs: Sequence[OptimizerSpec],
+                    tree: dict, t_idx: torch.Tensor,
+                    X: torch.Tensor) -> torch.Tensor:
+    """The SGD contribution of one tree, at tree index ``t_idx``, to the
+    predictions of the rows X (leaf values are immutable once fit)."""
+    v_new = single_tree_leaf_values(cfg, tree, X)
+    return _lr_columns(specs, cfg.output_dim, t_idx)[None, :] * v_new
 
 
 def fit_loop(cfg: TreeConfig, iterations: int, ens: Ensemble,

@@ -16,11 +16,12 @@ every rank, as one process fits it (the JAX package lets XLA gather the
 minibatch rows likewise): a minibatch is 256-2048 rows, and the quantile
 grid needs all of them anyway.  So both tree paths run here, K6 included.
 
-The per-minibatch bodies are those of the single-process loops
-(``rl/jit_update.py`` ``ppo_minibatch_step``, ``rl/jit_awr.py``
-``awr_critic_step`` / ``awr_actor_step``).  On NCCL the loops queue their
-work without a host synchronisation; on gloo every gather waits for the
-host.
+The per-minibatch steps are ``rl/jit_update.py`` ``ppo_minibatch_step``
+and ``rl/jit_awr.py`` ``awr_critic_step`` / ``awr_actor_step``: the
+kernels of the single-process loops' step bodies, run as plain calls (a
+CUDA graph cannot hold the gathers), each tree written out of place.  On
+NCCL the loops queue their work without a host synchronisation; on gloo
+every gather waits for the host.
 """
 from __future__ import annotations
 
@@ -30,11 +31,10 @@ import torch
 
 from ..config import TreeConfig
 from ..ensemble import Ensemble
-from ..ops.boosting import predict_sgd
+from ..ops.boosting import predict_sgd, tree_prediction
 from ..optimizers import OptimizerSpec
 from ..rl.jit_awr import AWRHyper, _trace, awr_actor_step, awr_critic_step
-from ..rl.jit_update import (PPOHyper, entropy_trace, ppo_minibatch_step,
-                             tree_prediction)
+from ..rl.jit_update import PPOHyper, entropy_trace, ppo_minibatch_step
 from .sharded import Mesh
 
 

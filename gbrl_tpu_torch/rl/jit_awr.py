@@ -10,16 +10,17 @@ loss traces stay on the device.  Where the JAX package has ``jax.jit`` and
 ``lax.fori_loop``, this is a Python loop that queues its launches and
 returns.
 
-On a CUDA device ``awr_update_loop`` replays the critic step body and the
-actor step body as captured CUDA graphs, one replay a tree
-(``_AWRGraphs``): the bodies read static device buffers that the host
-refreshes once an update, device counters replace the step numbers, and
-each step predicts over a graph-owned working copy of its learner's
-ensemble (K5, the trees of this update included) and writes its tree into
-that copy in place; the learners get new ensembles copied from it after
-the loop.  The graphs run the same kernels in the same order as the eager
-loop, so the trees are the same bits.  CPU tensors, and the sharded loop
-of ``parallel/sharded_rl.py``, run eagerly.
+``awr_update_loop`` runs the critic step body and the actor step body of
+``_AWRGraphs`` once a tree through ``rl/graphs.py`` ``run_step``: the
+bodies read static device buffers that the host refreshes once an update,
+device counters replace the step numbers, and each step predicts over a
+working copy of its learner's ensemble (K5, the trees of this update
+included) and writes its tree into that copy in place; after the loop
+``write_tree`` writes the trees each copy grew into its learner's
+ensemble.  On a CUDA device each step replays its body's captured CUDA
+graph; elsewhere the body is called.
+The sharded loop of ``parallel/sharded_rl.py`` runs ``awr_critic_step``
+and ``awr_actor_step`` instead.
 
 Semantics mirror rl/awr.py ``learn``: critic minibatch regression on
 bootstrapped returns (one tree per step), then actor advantage-weighted
@@ -40,8 +41,9 @@ from ..ops import fit
 from ..ops.boosting import _TREE_FIELDS, predict_sgd
 from ..optimizers import OptimizerSpec
 from ..utils import profiling
+from . import graphs, jit_sac
+from .graphs import cached_graphs
 from .jit_sac import _boost, boost_tree, clip_as_jax
-from .jit_update import cached_graphs, replay_or_capture
 
 
 class AWRHyper(NamedTuple):
@@ -75,75 +77,37 @@ def awr_update_loop(acfg: TreeConfig, ccfg: TreeConfig, hp: AWRHyper,
     Kc / Ka more trees.  Returns (actor_ens, critic_ens,
     (critic_loss_trace, actor_loss_trace)), the traces device tensors.
 
-    On a CUDA device the steps replay CUDA graphs (``_AWRGraphs``), whose
-    static replay holds max(B, ``rows``) rows: a replay that grows up to
-    ``rows`` keeps its graphs.  Elsewhere ``eager_awr_update_loop`` runs
-    the steps."""
+    Each step is one ``graphs.run_step`` of a body of ``_AWRGraphs``,
+    whose static replay holds max(B, ``rows``) rows: a replay that grows
+    up to ``rows`` keeps its graphs."""
     Kc, Ka = n_updates
-    if X.device.type != "cuda" or Kc + Ka == 0:
-        return eager_awr_update_loop(acfg, ccfg, hp, specs, n_updates,
-                                     actor_ens, critic_ens, X, acts, rets,
-                                     advs, cmb_idx, amb_idx, feat_w)
+    if Kc + Ka == 0:
+        return actor_ens, critic_ens, (_trace([], X.device),
+                                       _trace([], X.device))
     actor_specs, critic_specs = specs
     g = _awr_graphs(acfg, ccfg, hp, specs, n_updates, actor_ens, critic_ens,
                     X, acts, cmb_idx, amb_idx, feat_w, max(rows, X.shape[0]))
     g.load(actor_ens, critic_ens, X, acts, rets, advs, cmb_idx, amb_idx,
            feat_w)
-    dev = X.device
     span = profiling.spanner()
     for learner, K, body in (
             ("critic", Kc, lambda: g.critic_body(ccfg, critic_specs)),
             ("actor", Ka, lambda: g.actor_body(acfg, hp, actor_specs))):
         for k in range(K):
             with span("minibatch", u=k, learner=learner):
-                replay_or_capture(g.graphs, learner, dev, body)
-    return g.result()
-
-
-def eager_awr_update_loop(acfg: TreeConfig, ccfg: TreeConfig, hp: AWRHyper,
-                          specs: Tuple[Tuple[OptimizerSpec, ...], ...],
-                          n_updates: Tuple[int, int],
-                          actor_ens: Ensemble, critic_ens: Ensemble,
-                          X: torch.Tensor, acts: torch.Tensor,
-                          rets: torch.Tensor, advs: torch.Tensor,
-                          cmb_idx: torch.Tensor, amb_idx: torch.Tensor,
-                          feat_w: torch.Tensor):
-    """``awr_update_loop`` queued launch by launch from the host, one
-    ``write_tree`` a step (the CPU's path, and the card's yardstick for
-    the graphs)."""
-    actor_specs, critic_specs = specs
-    Kc, Ka = n_updates
-    dev = X.device
-    on_card = dev.type == "cuda"
-    span = profiling.spanner()
-    ctrace = []
-    for k in range(Kc):
-        with span("minibatch", u=k, learner="critic"):
-            idx = cmb_idx[k]
-            critic_ens, loss = awr_critic_step(ccfg, critic_specs,
-                                               critic_ens, feat_w, X[idx],
-                                               rets[idx])
-            if on_card:
-                profiling.count("graph.eager")
-        ctrace.append(loss)
-    atrace = []
-    for k in range(Ka):
-        with span("minibatch", u=k, learner="actor"):
-            idx = amb_idx[k]
-            actor_ens, loss = awr_actor_step(acfg, hp, actor_specs,
-                                             actor_ens, feat_w, X[idx],
-                                             acts[idx], advs[idx])
-            if on_card:
-                profiling.count("graph.eager")
-        atrace.append(loss)
-    return actor_ens, critic_ens, (_trace(ctrace, dev), _trace(atrace, dev))
+                graphs.run_step(g.graphs, learner, X.device, body)
+    # copies out of the buffers, which the next load overwrites
+    return (_written(actor_ens, g.actor, Ka),
+            _written(critic_ens, g.critic, Kc),
+            (g.ctrace.clone(), g.atrace.clone()))
 
 
 def awr_critic_step(ccfg: TreeConfig, critic_specs, critic_ens: Ensemble,
                     feat_w: torch.Tensor, Xmb: torch.Tensor,
                     r: torch.Tensor):
-    """One critic regression tree on a minibatch (rows already gathered).
-    Returns (critic ensemble, the minibatch's loss)."""
+    """One critic regression tree on a minibatch (rows already gathered)
+    of the sharded update phase (``parallel/sharded_rl.py``).  Returns
+    (critic ensemble, the minibatch's loss)."""
     g, loss = _critic_grads(ccfg, critic_specs, critic_ens, Xmb, r)
     return _boost(ccfg, critic_ens, Xmb, g, feat_w), loss
 
@@ -152,7 +116,8 @@ def awr_actor_step(acfg: TreeConfig, hp: AWRHyper, actor_specs,
                    actor_ens: Ensemble, feat_w: torch.Tensor,
                    Xmb: torch.Tensor, a: torch.Tensor, adv: torch.Tensor):
     """One advantage-weighted actor tree on a minibatch (rows already
-    gathered).  Returns (actor ensemble, the minibatch's loss)."""
+    gathered) of the sharded update phase (``parallel/sharded_rl.py``).
+    Returns (actor ensemble, the minibatch's loss)."""
     with profiling.span("grads"):
         g, loss = _actor_grads(acfg, hp, actor_specs, actor_ens, Xmb, a, adv)
     return _boost(acfg, actor_ens, Xmb, g, feat_w), loss.detach()
@@ -210,10 +175,11 @@ def _actor_grads(acfg: TreeConfig, hp: AWRHyper, actor_specs,
 
 
 class _AWRGraphs:
-    """The static device buffers of one update's shapes and the CUDA graphs
-    of its two step bodies, the critic's and the actor's.  The replay sits
-    in buffers of ``rows`` rows whose first B a load fills (the plans index
-    below B), so a replay that grows keeps its graphs.  Each learner's
+    """The static device buffers of one update's shapes and, on a CUDA
+    device, the CUDA graphs of its two step bodies, the critic's and the
+    actor's.  The replay sits in buffers of ``rows`` rows whose first B a
+    load fills (the plans index below B), so a replay that grows keeps its
+    graphs.  Each learner's
     ensemble has a working copy that its body reads through K5 and writes
     each new tree into, in place, at the copy's device ``n_trees``; the
     device counters ``uc`` / ``ua`` take the place of the step numbers and
@@ -281,14 +247,6 @@ class _AWRGraphs:
             self.atrace.index_copy_(0, self.ua, loss.detach().reshape(1))
         self.ua.add_(1)
 
-    def result(self):
-        """(actor ensemble, critic ensemble, (critic trace, actor trace)),
-        each a copy: the next load overwrites the buffers."""
-        def copy(work: Ensemble) -> Ensemble:
-            return Ensemble(**{f: getattr(work, f).clone() for f in FIELDS})
-        return (copy(self.actor), copy(self.critic),
-                (self.ctrace.clone(), self.atrace.clone()))
-
 
 def _write_in_place(ens: Ensemble, tree: dict) -> None:
     """``write_tree(ens, tree, ens.n_trees)`` into ``ens``'s own tensors."""
@@ -298,6 +256,20 @@ def _write_in_place(ens: Ensemble, tree: dict) -> None:
         buf.index_copy_(0, at, tree[f][None].to(buf.dtype))
     ens.depths.index_copy_(0, at, tree["depth"].reshape(1).to(torch.int32))
     ens.n_trees.add_(1)
+
+
+def _written(ens: Ensemble, work: Ensemble, K: int) -> Ensemble:
+    """``ens`` with the K trees its working copy ``work`` grew past
+    ``ens.n_trees``, written by ``jit_sac.write_tree``: every AWR tree
+    reaches its learner through the write of ``_boost``'s module."""
+    if K == 0:
+        return ens
+    idx = ens.n_trees + torch.arange(K, dtype=torch.int32,
+                                     device=ens.n_trees.device)
+    tree = {f: torch.index_select(getattr(work, f), 0, idx)
+            for f in _TREE_FIELDS}
+    tree["depth"] = torch.index_select(work.depths, 0, idx)
+    return jit_sac.write_tree(ens, tree, idx)
 
 
 def _awr_graphs(acfg: TreeConfig, ccfg: TreeConfig, hp: AWRHyper, specs,

@@ -10,15 +10,15 @@ every per-minibatch value stays a device tensor.  Where the JAX package has
 ``jax.jit`` and ``lax.fori_loop``, this is a Python loop that queues its
 launches and returns.
 
-On a CUDA device ``ppo_update_loop`` replays the minibatch body as a
-captured CUDA graph, one replay per minibatch: the body reads static
+``ppo_update_loop`` runs the minibatch body of ``_PPOGraphs`` once a
+minibatch through ``rl/graphs.py`` ``run_step``: the body reads static
 device buffers that the host refreshes once per update, a device counter
 replaces the minibatch number and another the tree index, and each tree
-leaves through [U] staging buffers that one batched write puts into the
-ensemble after the loop (``ops.boosting.write_trees``).  The graph runs
-the same kernels in the same order as the eager loop, so the trees are
-the same bits.  CPU tensors, and the sharded loop of
-``parallel/sharded_rl.py``, run eagerly.
+leaves through [U] staging buffers that one ``write_tree`` of all U puts
+into the ensemble after the loop.  On a CUDA device
+each minibatch replays the body's captured CUDA graph; elsewhere the body
+is called.  The sharded loop of ``parallel/sharded_rl.py`` runs
+``ppo_minibatch_step`` instead.
 
 Semantics are the torch facade path's (rl/ppo.py ``update``): clipped
 surrogate + entropy bonus on the policy columns, 0.5 * vf_coef * MSE on the
@@ -30,8 +30,7 @@ common.utils.clip_grad_norm (reference utils.py:270-295).
 """
 from __future__ import annotations
 
-from collections import OrderedDict
-from typing import Callable, NamedTuple, Optional, Sequence, Tuple, Union
+from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -39,14 +38,16 @@ import torch
 from ..config import TreeConfig
 from ..ensemble import Ensemble, ensure_capacity
 from ..ops import fit
-from ..ops.boosting import (_TREE_FIELDS, _lr_columns, _masked_candidates,
-                            predict_sgd, write_tree, write_trees)
+from ..ops.boosting import (_TREE_FIELDS, _masked_candidates, predict_sgd,
+                            tree_prediction, write_tree)
 from ..ops.candidates import bucketize
 from ..ops.fit import build_tree, standardize_l2
-from ..ops.kernels import launch_counts
-from ..ops.predict import single_tree_leaf_values
 from ..optimizers import OptimizerSpec
 from ..utils import profiling
+from . import graphs
+# GRAPH_CACHE stays importable from here: the benchmark's
+# graph_minibatch_pct takes it as the mark of a program with graphs
+from .graphs import GRAPH_CACHE, cached_graphs  # noqa: F401
 
 
 class PPOHyper(NamedTuple):
@@ -130,62 +131,23 @@ def ppo_update_loop(cfg: TreeConfig, hp: PPOHyper, n_updates: int,
     tree only that tree is evaluated on X (leaf values are immutable once
     fit), as ``ops.boosting.fit_loop`` does.  The ensemble must have room
     for ``n_updates`` more trees.  Returns (ensemble, [U] policy entropy of
-    each minibatch, a diagnostic).  On a CUDA device the minibatches
-    replay CUDA graphs (``_GraphSet``); elsewhere ``eager_update_loop``
-    runs them."""
-    if X.device.type != "cuda" or n_updates == 0:
-        return eager_update_loop(cfg, hp, n_updates, ens, X, mb_idx, mb_n,
-                                 actions, old_logp, adv, ret, specs, feat_w,
-                                 n_trees0, valid)
-    g = _graph_set(cfg, hp, specs, n_updates, ens, X, mb_idx, feat_w,
-                   valid is not None)
+    each minibatch, a diagnostic).  Each minibatch is one
+    ``graphs.run_step`` of ``_PPOGraphs.body``."""
+    if n_updates == 0:
+        return ens, entropy_trace([], X.device)
+    g = _ppo_graphs(cfg, hp, specs, n_updates, ens, X, mb_idx, feat_w,
+                    valid is not None)
     g.load(cfg, specs, ens, X, mb_idx, actions, old_logp, adv, ret, feat_w,
            n_trees0, valid)
     span = profiling.spanner()
     for u in range(n_updates):
+        n_u = int(mb_n[u])
         with span("minibatch", u=u, learner="shared"):
-            g.run(cfg, hp, specs, int(mb_n[u]))
+            graphs.run_step(g.graphs, n_u, X.device,
+                            lambda: g.body(cfg, hp, specs, n_u))
     idx = torch.arange(n_trees0, n_trees0 + n_updates, dtype=torch.int32,
                        device=X.device)
-    return write_trees(ens, g.stage, idx), g.ent.clone()
-
-
-def eager_update_loop(cfg: TreeConfig, hp: PPOHyper, n_updates: int,
-                      ens: Ensemble, X: torch.Tensor, mb_idx: torch.Tensor,
-                      mb_n: Sequence[int], actions: torch.Tensor,
-                      old_logp: torch.Tensor, adv: torch.Tensor,
-                      ret: torch.Tensor, specs: Tuple[OptimizerSpec, ...],
-                      feat_w: torch.Tensor, n_trees0: int,
-                      valid: Optional[torch.Tensor] = None
-                      ) -> Tuple[Ensemble, torch.Tensor]:
-    """``ppo_update_loop`` queued launch by launch from the host, one
-    ``write_tree`` a minibatch (the CPU's path, and the card's yardstick
-    for the graphs)."""
-    dev = X.device
-    mb = mb_idx.shape[1]
-    preds_full = predict_sgd(cfg, ens, X, specs, 0, n_trees0)
-    rows = torch.arange(mb, device=dev)
-    ents = []
-    span = profiling.spanner()
-    on_card = dev.type == "cuda"
-    for u in range(n_updates):
-        with span("minibatch", u=u, learner="shared"):
-            idx = mb_idx[u]
-            n_u = int(mb_n[u])
-            w = (rows < n_u).to(torch.float32)
-            if valid is not None:
-                w = w * valid[idx]      # autoreset rows (rl/buffers.py flat)
-            ens, tree, t_idx, ent = ppo_minibatch_step(
-                cfg, hp, specs, feat_w, ens, n_trees0 + u, n_u, w, X[idx],
-                preds_full[idx], actions[idx], old_logp[idx], adv[idx],
-                ret[idx])
-            ents.append(ent)
-            with span("predict_new"):
-                preds_full = preds_full + tree_prediction(cfg, specs, tree,
-                                                          t_idx, X)
-            if on_card:
-                profiling.count("graph.eager")
-    return ens, entropy_trace(ents, dev)
+    return write_tree(ens, g.stage, idx), g.ent.clone()
 
 
 def ppo_minibatch_step(cfg: TreeConfig, hp: PPOHyper,
@@ -195,11 +157,12 @@ def ppo_minibatch_step(cfg: TreeConfig, hp: PPOHyper,
                        w: torch.Tensor, Xmb: torch.Tensor, pmb: torch.Tensor,
                        act: torch.Tensor, old_logp: torch.Tensor,
                        adv: torch.Tensor, ret: torch.Tensor):
-    """One minibatch of the update phase, its rows already gathered: PPO
-    gradients from the predictions ``pmb`` -> candidates (K1) -> one tree
-    written at index ``t`` (a host int or a device int32 scalar).  Returns
-    (ensemble, tree, the tree index as a device tensor, the minibatch's
-    mean policy entropy)."""
+    """One minibatch of the sharded update phase
+    (``parallel/sharded_rl.py``), its rows already gathered: PPO gradients
+    from the predictions ``pmb`` -> candidates (K1) -> one tree written at
+    index ``t`` (a host int or a device int32 scalar).  Returns (ensemble,
+    tree, the tree index as a device tensor, the minibatch's mean policy
+    entropy)."""
     tree, t_idx, ent = ppo_minibatch_tree(cfg, hp, specs, feat_w, t, n_u, w,
                                           Xmb, pmb, act, old_logp, adv, ret)
     with profiling.span("write"):
@@ -233,13 +196,14 @@ def ppo_minibatch_tree(cfg: TreeConfig, hp: PPOHyper,
                                                          min=1.0)
 
 
-class _GraphSet:
-    """The static device buffers of one update's shapes and the CUDA graphs
-    of its minibatch body, one per real row count ``n_u`` (a partial last
-    minibatch has its own).  The body reads the rollout, the plan and the
-    predictions from the buffers, gathers its rows with the device counter
-    ``u``, fits tree ``t``, stages the tree and the entropy at row ``u``,
-    adds the tree to the predictions and counts ``u`` and ``t`` on."""
+class _PPOGraphs:
+    """The static device buffers of one update's shapes and, on a CUDA
+    device, the CUDA graphs of its minibatch body, one per real row count
+    ``n_u`` (a partial last minibatch has its own).  The body reads the
+    rollout, the plan and the predictions from the buffers, gathers its
+    rows with the device counter ``u``, fits tree ``t``, stages the tree
+    and the entropy at row ``u``, adds the tree to the predictions and
+    counts ``u`` and ``t`` on."""
 
     def __init__(self, ens: Ensemble, X: torch.Tensor, mb_idx: torch.Tensor,
                  feat_w: torch.Tensor, U: int, valid: bool):
@@ -302,83 +266,16 @@ class _GraphSet:
         self.u.add_(1)
         self.t.add_(1)
 
-    def run(self, cfg: TreeConfig, hp: PPOHyper,
-            specs: Tuple[OptimizerSpec, ...], n_u: int) -> None:
-        """One minibatch: a replay of the graph of ``n_u`` rows, captured
-        the first time ``n_u`` comes (``replay_or_capture``)."""
-        replay_or_capture(self.graphs, n_u, self.X.device,
-                          lambda: self.body(cfg, hp, specs, n_u))
 
-
-def replay_or_capture(graphs: dict, key, dev: torch.device,
-                      body: Callable[[], None]) -> None:
-    """Replay ``graphs[key]``, or, the first time ``key`` comes, run
-    ``body`` eagerly on a side stream (the warm-up a capture needs) and
-    then capture it into ``graphs[key]``.  A capture's counts
-    (``launch.<kernel>``) are held back and credited at each replay, as
-    are ``launch_counts``; ``graph.replay``, ``graph.eager`` and
-    ``graph.capture`` count what ran."""
-    entry = graphs.get(key)
-    if entry is not None:
-        graph, counted = entry
-        graph.replay()
-        for name, n in counted.items():
-            profiling.count(name, n)
-            if name.startswith("launch."):
-                launch_counts[name[len("launch."):]] += n
-        profiling.count("graph.replay")
-        return
-    stream = torch.cuda.current_stream(dev)
-    side = torch.cuda.Stream(dev)
-    side.wait_stream(stream)
-    with torch.cuda.stream(side):
-        body()
-    stream.wait_stream(side)
-    profiling.count("graph.eager")
-    graph = torch.cuda.CUDAGraph()
-    before = dict(launch_counts)
-    with profiling.collect() as counted, torch.cuda.graph(graph):
-        body()
-    launch_counts.update(before)
-    graphs[key] = (graph, counted)
-    profiling.count("graph.capture")
-
-
-# the graph sets by everything a capture bakes in (never by a learner or an
-# ensemble), PPO's and AWR's (rl/jit_awr.py); the oldest goes past
-# GRAPH_CACHE
-GRAPH_CACHE = 8
-_GRAPHS: "OrderedDict[tuple, object]" = OrderedDict()
-
-
-def cached_graphs(key: tuple, make: Callable[[], object]):
-    """The graph set of ``key``, made by ``make`` the first time."""
-    g = _GRAPHS.get(key)
-    if g is None:
-        g = _GRAPHS[key] = make()
-        if len(_GRAPHS) > GRAPH_CACHE:
-            _GRAPHS.popitem(last=False)
-    return g
-
-
-def _graph_set(cfg: TreeConfig, hp: PPOHyper,
-               specs: Tuple[OptimizerSpec, ...], U: int, ens: Ensemble,
-               X: torch.Tensor, mb_idx: torch.Tensor, feat_w: torch.Tensor,
-               valid: bool) -> _GraphSet:
+def _ppo_graphs(cfg: TreeConfig, hp: PPOHyper,
+                specs: Tuple[OptimizerSpec, ...], U: int, ens: Ensemble,
+                X: torch.Tensor, mb_idx: torch.Tensor, feat_w: torch.Tensor,
+                valid: bool) -> _PPOGraphs:
     key = (X.device, cfg, hp, specs, U, tuple(X.shape), X.dtype,
            tuple(mb_idx.shape), tuple(feat_w.shape), feat_w.dtype, valid,
            fit._DISABLE_FUSED_TREE)
-    return cached_graphs(key, lambda: _GraphSet(ens, X, mb_idx, feat_w, U,
-                                                valid))
-
-
-def tree_prediction(cfg: TreeConfig, specs: Tuple[OptimizerSpec, ...],
-                    tree: dict, t_idx: torch.Tensor,
-                    X: torch.Tensor) -> torch.Tensor:
-    """The new tree's SGD contribution to the predictions of the rows X
-    (leaf values are immutable once fit)."""
-    v_new = single_tree_leaf_values(cfg, tree, X)
-    return _lr_columns(specs, cfg.output_dim, t_idx)[None, :] * v_new
+    return cached_graphs(key, lambda: _PPOGraphs(ens, X, mb_idx, feat_w, U,
+                                                 valid))
 
 
 def entropy_trace(ents: list, dev: torch.device) -> torch.Tensor:

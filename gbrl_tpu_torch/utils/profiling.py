@@ -24,8 +24,8 @@ reference only has stdout verbose prints, SURVEY §5).
   copy from pageable host memory to the card) and ``cache.hit`` /
   ``cache.delta`` / ``cache.miss`` / ``cache.unkeyed`` (the learners'
   prediction cache) and ``graph.capture`` / ``graph.replay`` /
-  ``graph.eager`` (the PPO update's minibatches: captured as a CUDA graph,
-  replayed, or run eagerly on the card; ``rl/jit_update.py``).
+  ``graph.eager`` (the fused updates' steps on the card: captured as a
+  CUDA graph, replayed, or run as a capture's warm-up; ``rl/graphs.py``).
   ``collect()`` holds counts back from a block (a graph's capture).
 """
 from __future__ import annotations

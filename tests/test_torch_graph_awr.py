@@ -1,19 +1,21 @@
-"""The AWR update's CUDA graphs (``rl/jit_awr.py`` ``_AWRGraphs``).
+"""The AWR update's one loop and its CUDA graphs (``rl/jit_awr.py``
+``_AWRGraphs``, ``rl/graphs.py``).
 
-On the CPU: the critic and actor step bodies the card captures, run step
-by step from their static buffers, working copies and device counters,
-against the eager loop, bit for bit, over two updates whose replays differ
-in length and are shorter than the buffers; the graph sets' keys (one set
-for any learner of the same shapes and capacities); CPU tensors and the
-sharded loop stay eager (no ``graph.*`` count).  On the card (marked
-``cuda``, skips without one): graph replay against the eager loop, bit for
-bit, over two updates of one learner pair with a growing replay and a
-third after a capacity growth (a second ``learn``), on both tree paths,
-with the capture, replay and launch counts.  Run the card tests on a
-machine with an H100:
+On the CPU: ``awr_update_loop``, which calls the critic and actor step
+bodies the card captures from their static buffers, working copies and
+device counters, against a sequential yardstick of ``awr_critic_step`` /
+``awr_actor_step``, bit for bit, over two updates whose replays differ in
+length and are shorter than the buffers; the graph sets' keys (one set
+for any learner of the same shapes and capacities); nothing is captured
+off the card (no ``graph.*`` count), and the sharded loop gives the same
+trees.  On the card (marked ``cuda``, skips without one): graph replay
+against the same loop with ``graphs.run_step`` swapped for a plain call,
+bit for bit, over two updates of one learner pair with a growing replay
+and a third after a capacity growth (a second ``learn``), on both tree
+paths, with the capture, replay and launch counts.  Run the card tests on
+a machine with an H100:
 ``python -m pytest tests/test_torch_graph_awr.py -q -m cuda``."""
 import contextlib
-import functools
 
 import numpy as np
 import pytest
@@ -27,8 +29,8 @@ from gbrl_tpu_torch.ops import kernels as K
 from gbrl_tpu_torch.optimizers import OptimizerSpec
 from gbrl_tpu_torch.parallel.sharded import Mesh
 from gbrl_tpu_torch.parallel.sharded_rl import sharded_awr_update
+from gbrl_tpu_torch.rl import graphs as G
 from gbrl_tpu_torch.rl import jit_awr as JA
-from gbrl_tpu_torch.rl import jit_update as JU
 from gbrl_tpu_torch.utils import profiling
 
 F, A, MB, KC, KA, ROWS = 3, 1, 128, 3, 2, 600
@@ -65,19 +67,54 @@ def _replay(seed: int, dev, B: int):
     return [torch.from_numpy(c).to(dev) for c in cols]
 
 
+def _sequential(setup, actor, critic, X, acts, rets, advs, cmb, amb, fw):
+    """The yardstick: the update step by step from the host,
+    ``awr_critic_step`` for each critic plan row, then ``awr_actor_step``
+    for each actor row.  Returns (actor, critic, (critic trace, actor
+    trace))."""
+    acfg, ccfg, hp, specs = setup
+    ctrace, atrace = [], []
+    for idx in cmb:
+        critic, loss = JA.awr_critic_step(ccfg, specs[1], critic, fw, X[idx],
+                                          rets[idx])
+        ctrace.append(loss)
+    for idx in amb:
+        actor, loss = JA.awr_actor_step(acfg, hp, specs[0], actor, fw,
+                                        X[idx], acts[idx], advs[idx])
+        atrace.append(loss)
+    return actor, critic, (torch.stack(ctrace), torch.stack(atrace))
+
+
 def _grown(setup, dev, capacity: int = 16):
-    """The actor's and the critic's ensembles after one eager update of 3
-    and 2 trees from biases, in a capacity of ``capacity``."""
+    """The actor's and the critic's ensembles after one update of 3 and 2
+    trees from biases, in a capacity of ``capacity``."""
     acfg, ccfg, hp, specs = setup
     ens = []
     for cfg, bias in ((acfg, -0.3), (ccfg, -180.0)):
         e = init_ensemble(cfg, capacity, str(dev))
         e.bias[:] = bias
         ens.append(e)
-    a, c, _ = JA.eager_awr_update_loop(acfg, ccfg, hp, specs, (KC, KA), *ens,
-                                       *_replay(99, dev, 200),
-                                       torch.ones(F, device=dev))
+    a, c, _ = _sequential(setup, *ens, *_replay(99, dev, 200),
+                          torch.ones(F, device=dev))
     return a, c
+
+
+def _plain_step(graphs, key, dev, body):
+    """``graphs.run_step`` without a capture: the body, called."""
+    body()
+
+
+def _spy_steps(monkeypatch) -> list:
+    """Wrap ``graphs.run_step``: a list of each call's device type and the
+    size of its ``graphs`` dict after the call."""
+    calls = []
+    real = G.run_step
+
+    def spy(graphs, key, dev, body):
+        real(graphs, key, dev, body)
+        calls.append((dev.type, len(graphs)))
+    monkeypatch.setattr(G, "run_step", spy)
+    return calls
 
 
 @contextlib.contextmanager
@@ -117,11 +154,12 @@ def _assert_same_update(got, want):
                                             ("level", True),
                                             ("k6", False)])
 def test_awr_graph_bodies_match_eager_loop_on_cpu(path, learn_std):
-    """The bodies the card captures, run step by step on CPU tensors from
-    one set of static buffers over two updates (replays of 300 and 450
-    rows in buffers of 600): the eager loop's ensembles and loss traces,
-    bit for bit; the counters end at KC and KA; the ensembles loaded stay
-    as they were (learner copies share them)."""
+    """``awr_update_loop`` on CPU tensors, which calls the bodies the card
+    captures step by step from one set of static buffers, over two updates
+    (replays of 300 and 450 rows in buffers of 600): the sequential
+    yardstick's ensembles and loss traces, bit for bit; the counters end
+    at KC and KA; the ensembles loaded stay as they were (learner copies
+    share them)."""
     setup = _setup(learn_std)
     acfg, ccfg, hp, specs = setup
     fw = torch.tensor([1.0, 0.5, 2.0])
@@ -132,18 +170,15 @@ def test_awr_graph_bodies_match_eager_loop_on_cpu(path, learn_std):
         for seed, B in ((1, 300), (2, 450)):
             X, acts, rets, advs, cmb, amb = _replay(seed, "cpu", B)
             before = [ensemble_to_numpy(e) for e in got[:2]]
-            want = JA.eager_awr_update_loop(acfg, ccfg, hp, specs, (KC, KA),
-                                            *want[:2], X, acts, rets, advs,
-                                            cmb, amb, fw)
-            if g is None:
-                g = JA._AWRGraphs(*got[:2], ROWS, X, acts, cmb, amb, fw,
-                                  (KC, KA))
-            g.load(*got[:2], X, acts, rets, advs, cmb, amb, fw)
-            for _ in range(KC):
-                g.critic_body(ccfg, specs[1])
-            for _ in range(KA):
-                g.actor_body(acfg, hp, specs[0])
-            loaded, got = got, g.result()
+            want = _sequential(setup, *want[:2], X, acts, rets, advs, cmb,
+                               amb, fw)
+            loaded, got = got, JA.awr_update_loop(
+                acfg, ccfg, hp, specs, (KC, KA), *got[:2], X, acts, rets,
+                advs, cmb, amb, fw, rows=ROWS)
+            used = JA._awr_graphs(acfg, ccfg, hp, specs, (KC, KA),
+                                  *loaded[:2], X, acts, cmb, amb, fw, ROWS)
+            assert g is None or used is g
+            g = used
             _assert_same_update(got, want)
             assert int(g.uc[0]) == KC and int(g.ua[0]) == KA
             for ens, arrs in zip(loaded[:2], before):
@@ -154,16 +189,17 @@ def test_awr_graph_bodies_match_eager_loop_on_cpu(path, learn_std):
 
 
 @pytest.mark.parametrize("where", ["cpu", "mesh"])
-def test_awr_update_stays_eager_off_the_card(where):
-    """``awr_update_loop`` on CPU tensors, and the sharded loop over a
-    mesh of one, run eagerly: no graph set is made and no ``graph.*``
-    count moves; both give the same trees and traces."""
+def test_awr_update_stays_eager_off_the_card(where, monkeypatch):
+    """``awr_update_loop`` on CPU tensors captures nothing: it takes one
+    ``graphs.run_step`` a step, which keeps no graph, and no ``graph.*``
+    count moves; the sharded loop over a mesh of one gives the same trees
+    and traces."""
     setup = _setup()
     acfg, ccfg, hp, specs = setup
     actor, critic = _grown(setup, "cpu")
     X, acts, rets, advs, cmb, amb = _replay(3, "cpu", 300)
     fw = torch.ones(F)
-    graphs = dict(JU._GRAPHS)
+    calls = _spy_steps(monkeypatch)
     before = _graph_counts()
     want = JA.awr_update_loop(acfg, ccfg, hp, specs, (KC, KA), actor,
                               critic, X, acts, rets, advs, cmb, amb, fw,
@@ -175,7 +211,7 @@ def test_awr_update_stays_eager_off_the_card(where):
                                  specs, fw)
         _assert_same_update(got, want)
     assert _delta(before) == dict.fromkeys(GRAPH_COUNTS, 0)
-    assert dict(JU._GRAPHS) == graphs
+    assert calls == [("cpu", 0)] * (KC + KA)
     assert int(want[1].n_trees) == 2 * KC
 
 
@@ -192,7 +228,7 @@ def test_awr_graph_sets_are_keyed_by_shapes_not_learners():
         return JA._awr_graphs(acfg, ccfg, hp, specs, (KC, KA), *ens, X,
                               acts, cmb, amb, fw, rows)
 
-    JU._GRAPHS.clear()
+    G._GRAPHS.clear()
     first = _grown(setup, "cpu")
     g = graphs(first)
     assert graphs(_grown(setup, "cpu")) is g
@@ -202,10 +238,10 @@ def test_awr_graph_sets_are_keyed_by_shapes_not_learners():
     with _tree_path("k6"):
         others.append(graphs(first))
     assert len({id(x) for x in [g] + others}) == 4
-    assert len(JU._GRAPHS) == 4
+    assert len(G._GRAPHS) == 4
     assert g.X.shape == (ROWS, F) and others[1].X.shape == (2 * ROWS, F)
     assert others[0].critic.capacity == 32
-    JU._GRAPHS.clear()
+    G._GRAPHS.clear()
 
 
 @pytest.fixture
@@ -216,9 +252,9 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _three_updates(dev, loop):
-    """Three updates through ``loop`` from one learner pair: replays of
-    300, 450 and 500 rows in buffers of 600; before the third the
+def _three_updates(dev):
+    """Three updates through ``awr_update_loop`` from one learner pair:
+    replays of 300, 450 and 500 rows in buffers of 600; before the third the
     capacities grow from 16 to 32 (a second ``learn``).  Returns each
     update's result and launch counts, and the ``graph.*`` counts."""
     setup = _setup()
@@ -231,8 +267,8 @@ def _three_updates(dev, loop):
         if seed == 3:
             ens = [ensure_capacity(e, 17) for e in ens]
         K.reset_launch_counts()
-        res = loop(acfg, ccfg, hp, specs, (KC, KA), *ens,
-                   *_replay(seed, dev, B), fw)
+        res = JA.awr_update_loop(acfg, ccfg, hp, specs, (KC, KA), *ens,
+                                 *_replay(seed, dev, B), fw, rows=ROWS)
         torch.cuda.synchronize()
         out.append((res, dict(K.launch_counts)))
         ens = res[:2]
@@ -242,28 +278,28 @@ def _three_updates(dev, loop):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("path", ["level", "k6"])
-def test_awr_graph_replay_matches_eager_on_card(cuda_device, path):
-    """Graph replay against the eager loop on the card over three updates
-    (a growing replay, then a capacity growth): the same ensembles and
-    loss traces, bit for bit; one capture per learner and capacity, a
-    replay for every other step; the eager loop's launch counts, K5 once
-    a tree."""
-    JU._GRAPHS.clear()
+def test_awr_graph_replay_matches_eager_on_card(cuda_device, path,
+                                                monkeypatch):
+    """Graph replay against the same loop with ``graphs.run_step`` swapped
+    for a plain call, on the card, over three updates (a growing replay,
+    then a capacity growth): the same ensembles and loss traces, bit for
+    bit; one capture per learner and capacity, a replay for every other
+    step; the plain calls' launch counts, K5 once a tree."""
+    G._GRAPHS.clear()
     with _tree_path(path):
-        eager, eager_counts = _three_updates(cuda_device,
-                                             JA.eager_awr_update_loop)
-        graph, counts = _three_updates(
-            cuda_device, functools.partial(JA.awr_update_loop, rows=ROWS))
+        with monkeypatch.context() as m:
+            m.setattr(G, "run_step", _plain_step)
+            plain, plain_counts = _three_updates(cuda_device)
+        graph, counts = _three_updates(cuda_device)
     steps = 3 * (KC + KA)
-    assert eager_counts == {"graph.capture": 0, "graph.eager": steps,
-                            "graph.replay": 0}, eager_counts
+    assert plain_counts == dict.fromkeys(GRAPH_COUNTS, 0), plain_counts
     assert counts == {"graph.capture": 4, "graph.eager": 4,
                       "graph.replay": steps - 4}, counts
-    for (gres, gl), (eres, el) in zip(graph, eager):
-        _assert_same_update(gres, eres)
-        assert gl == el, (gl, el)
-        fits = el["tree_build"] if path == "k6" else el["level_score"] // 4
-        assert fits == el["bucketize"] == el["oblivious_leaf_sum"] \
-            == KC + KA, el
-    assert len(JU._GRAPHS) == 2
-    JU._GRAPHS.clear()
+    for (gres, gl), (pres, pl) in zip(graph, plain):
+        _assert_same_update(gres, pres)
+        assert gl == pl, (gl, pl)
+        fits = pl["tree_build"] if path == "k6" else pl["level_score"] // 4
+        assert fits == pl["bucketize"] == pl["oblivious_leaf_sum"] \
+            == KC + KA, pl
+    assert len(G._GRAPHS) == 2
+    G._GRAPHS.clear()
