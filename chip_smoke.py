@@ -2108,17 +2108,26 @@ def sac_step_args(s, batch, eps):
 
 def phase_sac(dev, seed: int, smi: str) -> dict:
     """Phase 14: SAC.learn on Pendulum on the card (linear Q, twin
-    critics) with its launch counts; one sac_train_step from one carried
-    state, with the same noise, on the card and on the CPU port, for each
-    Q-form, tree for tree and stats within SAC_STATS_TOL, with its launch
-    counts; the train step's wall time and host synchronisations; K1-K3 and
-    K5 (the target's prefix predict) at the shapes the step gave them.
-    Returns those kernel times and the step's launches."""
+    critics) with its launch and graph counts (one replay of the boosting
+    body a train step, one capture a key); one sac_train_step from one
+    carried state, with the same noise, on the card (its body as a plain
+    call) and on the CPU port, for each Q-form, tree for tree and stats
+    within SAC_STATS_TOL, with its launch counts, and the graph replay
+    against the plain call, bit for bit, twice; the train step's wall time,
+    host synchronisations and graph replays; K1-K3 and K5 (the target's
+    prefix predict) at the shapes the step gave them.  Returns those
+    kernel times and the step's launches."""
     import torch
     from gbrl_tpu_torch import GBTLearner
     from gbrl_tpu_torch.ensemble import ensemble_to_numpy
     from gbrl_tpu_torch.ops import kernels as K
     from gbrl_tpu_torch.rl import jit_sac as JS
+    from gbrl_tpu_torch.utils import profiling
+
+    def graph_counts(before: dict) -> dict:
+        after = profiling.counters()
+        return {k: after.get(k, 0) - before.get(k, 0) for k in
+                ("graph.capture", "graph.replay", "graph.eager")}
     print(f"[14 SAC] {smi}", flush=True)
     t_phase = time.perf_counter()
     states = {}
@@ -2127,16 +2136,20 @@ def phase_sac(dev, seed: int, smi: str) -> dict:
                      ("tanh", SAC_SHORT_STEPS)):
         algo = new_sac(q)
         K.reset_launch_counts()
+        before = profiling.counters()
         t0 = time.perf_counter()
         algo.learn(steps, seed=seed)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         counts = dict(K.launch_counts)
+        graphs = graph_counts(before)
         n = sac_train_steps(steps)
         nts = [algo.actor.get_num_trees()] + [c.get_num_trees()
                                               for c in algo.critics]
         assert nts == [n] * 3, (nts, n)
         assert launch_tuple(counts) == sac_launches(n), counts
+        assert graphs["graph.replay"] + graphs["graph.eager"] == n, graphs
+        assert graphs["graph.capture"] == graphs["graph.eager"] <= 1, graphs
         rewards = np.asarray(algo.episode_rewards)
         assert len(rewards) and np.isfinite(rewards).all()
         assert np.isfinite(algo.alpha) and algo._mirror.uses_c_library
@@ -2150,7 +2163,7 @@ def phase_sac(dev, seed: int, smi: str) -> dict:
               f"actor and 2 x {n} critic trees, {len(rewards)} episodes "
               f"with finite rewards, mean-100 {algo.mean_reward():.2f}, "
               f"alpha {algo.alpha:.5f}, target prefixes {prefixes}; "
-              f"{secs:.2f} s; launches {launches_of(counts)}")
+              f"{secs:.2f} s; launches {launches_of(counts)}; {graphs}")
         states[q] = algo
     # one train step from each carried state: card and CPU, same noise
     step_launches = calls = None
@@ -2163,8 +2176,11 @@ def phase_sac(dev, seed: int, smi: str) -> dict:
         r = np.random.default_rng(seed + 1)
         batch = algo.buffer.sample(SAC_BATCH, r)
         eps = r.normal(size=(2, SAC_BATCH, 1)).astype(np.float32)
-        out = {}
-        for device in ("cuda", "cpu"):
+        def one_step(device: str, graphs: bool = False):
+            """One sac_train_step from the saved state; ``graphs`` False
+            calls its body plainly with its fits (and, for the linear
+            Q-form on the card, its kernel calls) recorded: a recording
+            waits for the card, which a graph's capture cannot."""
             s = new_sac(q, device)
             s.log_alpha = algo.log_alpha.detach().clone()
             for m, p in zip([s.actor] + s.critics, paths):
@@ -2173,18 +2189,37 @@ def phase_sac(dev, seed: int, smi: str) -> dict:
                 c.target_prefix = ca.target_prefix
             args = sac_step_args(s, batch, eps)
             K.reset_launch_counts()
-            with recorded_fits(JS) as fits, (
+            before = profiling.counters()
+            with (recorded_fits(JS) if not graphs else
+                  contextlib.nullcontext([])) as fits, (
                     recorded_kernel_calls() if device == "cuda" and
-                    q == "linear" else contextlib.nullcontext()) as rec:
+                    q == "linear" and not graphs
+                    else contextlib.nullcontext()) as rec, (
+                    plain_steps() if not graphs
+                    else contextlib.nullcontext()):
                 new_actor, new_critics, stats = JS.sac_train_step(*args)
             vals = {k: float(v) for k, v in stats.items()}
-            out[device] = ([ensemble_to_numpy(e) for e in
-                            (new_actor,) + new_critics], vals, fits,
-                           dict(K.launch_counts), rec,
-                           [m.learner.cfg for m in [s.actor] + s.critics])
-        card, s_card, fits, counts, rec, cfgs = out["cuda"]
-        cpu, s_cpu = out["cpu"][:2]
+            return ([ensemble_to_numpy(e) for e in
+                     (new_actor,) + new_critics], vals, fits,
+                    dict(K.launch_counts), rec,
+                    [m.learner.cfg for m in [s.actor] + s.critics],
+                    graph_counts(before))
+
+        card, s_card, fits, counts, rec, cfgs, _ = one_step("cuda")
+        cpu, s_cpu = one_step("cpu")[:2]
         assert launch_tuple(counts) == sac_launches(1), counts
+        replays = []
+        for run in range(2):
+            ens, s_graph, _, g_counts, _, _, g = one_step("cuda", True)
+            assert g_counts == counts, (g_counts, counts)
+            assert g["graph.replay"] + g["graph.eager"] == 1, g
+            assert g["graph.capture"] == g["graph.eager"] <= 1 - run, g
+            assert s_graph == s_card, (q, run, s_graph, s_card)
+            for e_graph, e_plain in zip(ens, card):
+                for k in e_plain:
+                    assert np.array_equal(e_graph[k], e_plain[k]), \
+                        f"SAC {q}: graph replay {run} differs in {k}"
+            replays.append(g)
         nt0 = algo.actor.get_num_trees()
         ties = sum(compare_trees(f"SAC {q} {what} vs CPU", cfg, fit,
                                  tree_of(c, nt0), tree_of(p, nt0))
@@ -2199,7 +2234,9 @@ def phase_sac(dev, seed: int, smi: str) -> dict:
               f"{[c.target_prefix for c in algo.critics]} of {nt0} trees): "
               f"launches {launches_of(counts)}; the 3 trees equal to the "
               f"CPU port's" + (f" ({ties} a near tie)" if ties else "")
-              + f"; stats {s_card} vs {s_cpu}")
+              + f"; stats {s_card} vs {s_cpu}; as graph replays, twice: "
+              f"the plain call's ensembles, stats and launches ({replays[0]},"
+              f" {replays[1]})")
         if q == "linear":
             step_launches, calls = {"level path": counts}, rec
             prefix = algo.critics[0].target_prefix
@@ -2215,9 +2252,12 @@ def phase_sac(dev, seed: int, smi: str) -> dict:
     print(f"  SAC train step [batch {SAC_BATCH}, "
           f"{algo.actor.get_num_trees()} trees]: "
           f"{host_ms(step, SAC_TIMED, SAC_WARMUP)}")
+    before = profiling.counters()
     n_sync = sync_count(step)
-    print(f"  host synchronisations per run_sac_train_step: {n_sync}")
+    g = graph_counts(before)
+    print(f"  host synchronisations per run_sac_train_step: {n_sync}; {g}")
     assert n_sync == 1, f"run_sac_train_step synchronised {n_sync} times"
+    assert g == {"graph.capture": 0, "graph.replay": 1, "graph.eager": 0}, g
     profile_requests(step, n=10, what="train step")
     times = path_kernel_times("sac", calls, SAC_TARGET_PREDICT, prefix)
     print(f"  phase 14 took {time.perf_counter() - t_phase:.1f} s")

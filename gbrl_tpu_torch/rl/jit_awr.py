@@ -38,12 +38,13 @@ import torch
 from ..config import TreeConfig
 from ..ensemble import FIELDS, Ensemble, ensure_capacity
 from ..ops import fit
-from ..ops.boosting import _TREE_FIELDS, predict_sgd
+from ..ops.boosting import predict_sgd
 from ..optimizers import OptimizerSpec
 from ..utils import profiling
-from . import graphs, jit_sac
+from . import graphs
 from .graphs import cached_graphs
-from .jit_sac import _boost, boost_tree, clip_as_jax
+from .jit_sac import (_boost, _write_in_place, _written, boost_tree,
+                      clip_as_jax)
 
 
 class AWRHyper(NamedTuple):
@@ -246,30 +247,6 @@ class _AWRGraphs:
             _write_in_place(self.actor, tree)
             self.atrace.index_copy_(0, self.ua, loss.detach().reshape(1))
         self.ua.add_(1)
-
-
-def _write_in_place(ens: Ensemble, tree: dict) -> None:
-    """``write_tree(ens, tree, ens.n_trees)`` into ``ens``'s own tensors."""
-    at = ens.n_trees.reshape(1).long()
-    for f in _TREE_FIELDS:
-        buf = getattr(ens, f)
-        buf.index_copy_(0, at, tree[f][None].to(buf.dtype))
-    ens.depths.index_copy_(0, at, tree["depth"].reshape(1).to(torch.int32))
-    ens.n_trees.add_(1)
-
-
-def _written(ens: Ensemble, work: Ensemble, K: int) -> Ensemble:
-    """``ens`` with the K trees its working copy ``work`` grew past
-    ``ens.n_trees``, written by ``jit_sac.write_tree``: every AWR tree
-    reaches its learner through the write of ``_boost``'s module."""
-    if K == 0:
-        return ens
-    idx = ens.n_trees + torch.arange(K, dtype=torch.int32,
-                                     device=ens.n_trees.device)
-    tree = {f: torch.index_select(getattr(work, f), 0, idx)
-            for f in _TREE_FIELDS}
-    tree["depth"] = torch.index_select(work.depths, 0, idx)
-    return jit_sac.write_tree(ens, tree, idx)
 
 
 def _awr_graphs(acfg: TreeConfig, ccfg: TreeConfig, hp: AWRHyper, specs,

@@ -9,6 +9,14 @@ reads back only the three statistics the host needs for the (CPU torch)
 temperature update: one host synchronisation per train step, where the JAX
 package does ``jax.device_get(stats)``.
 
+``sac_train_step`` computes the target as an eager head, through this
+module's ``predict_sgd``, then runs the boosting body of ``_SACGraphs``
+once through ``rl/graphs.py`` ``run_step``: the body reads static device
+buffers and predicts over a working copy of each learner's ensemble (K5),
+writing each new tree into that copy in place; after it ``write_tree``
+hands each copy's new tree to its learner's ensemble.  On a CUDA device
+the body is a replay of its captured CUDA graph; elsewhere it is called.
+
 Semantics follow rl/sac.py exactly: the same order (critics first, the
 actor against the UPDATED critics), the same tanh-Gaussian log-prob, the
 same parametric Q-forms (reference gbrl/models/critic.py:42-54), the same
@@ -26,12 +34,15 @@ import numpy as np
 import torch
 
 from ..config import TreeConfig
-from ..ensemble import Ensemble, ensure_capacity
-from ..ops.boosting import _masked_candidates, predict_sgd, write_tree
+from ..ensemble import FIELDS, Ensemble, ensure_capacity
+from ..ops import fit
+from ..ops.boosting import (_TREE_FIELDS, _masked_candidates, predict_sgd,
+                            write_tree)
 from ..ops.candidates import bucketize
 from ..ops.fit import build_tree, standardize_l2
 from ..optimizers import OptimizerSpec
 from ..utils import profiling
+from . import graphs
 from .jit_update import _block_clip
 
 LOG_STD_MIN, LOG_STD_MAX = -20.0, 2.0
@@ -105,6 +116,30 @@ def boost_tree(cfg: TreeConfig, X: torch.Tensor, grads: torch.Tensor,
     return build_tree(cfg, Xb, cand_vals, grads, build, w, feat_w)
 
 
+def _write_in_place(ens: Ensemble, tree: dict) -> None:
+    """``write_tree(ens, tree, ens.n_trees)`` into ``ens``'s own tensors."""
+    at = ens.n_trees.reshape(1).long()
+    for f in _TREE_FIELDS:
+        buf = getattr(ens, f)
+        buf.index_copy_(0, at, tree[f][None].to(buf.dtype))
+    ens.depths.index_copy_(0, at, tree["depth"].reshape(1).to(torch.int32))
+    ens.n_trees.add_(1)
+
+
+def _written(ens: Ensemble, work: Ensemble, K: int) -> Ensemble:
+    """``ens`` with the K trees its working copy ``work`` grew past
+    ``ens.n_trees``, written by ``write_tree``: every tree of a graph body
+    reaches its learner through this module's write."""
+    if K == 0:
+        return ens
+    idx = ens.n_trees + torch.arange(K, dtype=torch.int32,
+                                     device=ens.n_trees.device)
+    tree = {f: torch.index_select(getattr(work, f), 0, idx)
+            for f in _TREE_FIELDS}
+    tree["depth"] = torch.index_select(work.depths, 0, idx)
+    return write_tree(ens, tree, idx)
+
+
 def _critic_wb(hp: SACHyper, theta: torch.Tensor):
     return theta[:, :hp.act_dim], theta[:, hp.act_dim:]
 
@@ -115,6 +150,111 @@ def _clip_blocks(hp: SACHyper, g: torch.Tensor) -> torch.Tensor:
     A = hp.act_dim
     return torch.cat([_block_clip(g[:, :A], hp.max_grad_norm),
                       _block_clip(g[:, A:], hp.max_grad_norm)], dim=1)
+
+
+class _SACGraphs:
+    """The static device buffers of one step's shapes and, on a CUDA
+    device, the CUDA graph of its boosting body.  Each learner's ensemble
+    (the actor's, then each critic's) has a working copy that the body
+    reads through K5 and writes its tree into, in place, at the copy's
+    device ``n_trees``.  ``handed`` holds the ensembles the last hand-off
+    gave the learners: a copy is reloaded only when its learner's ensemble
+    is another object (a new agent, a new bias, a capacity growth)."""
+
+    def __init__(self, ensembles: Sequence[Ensemble], obs: torch.Tensor,
+                 actions: torch.Tensor, feat_w: torch.Tensor):
+        dev = obs.device
+        self.obs = torch.empty_like(obs)
+        self.actions = torch.empty_like(actions)
+        self.eps_cur = torch.empty_like(actions)
+        self.y = torch.empty((obs.shape[0],), dtype=torch.float32,
+                             device=dev)
+        self.alpha = torch.empty((), dtype=torch.float32, device=dev)
+        self.feat_w = torch.empty_like(feat_w)
+        self.stats = torch.zeros((len(STATS),), dtype=torch.float32,
+                                 device=dev)
+        self.work = [Ensemble(**{f: torch.empty_like(getattr(e, f))
+                                 for f in FIELDS}) for e in ensembles]
+        self.handed = [None] * len(self.work)
+        self.graphs = {}
+
+    def load(self, ensembles: Sequence[Ensemble]) -> None:
+        """Reload the working copies of ensembles the last hand-off did not
+        give (a host-side check: no read of the card)."""
+        for i, (work, ens) in enumerate(zip(self.work, ensembles)):
+            if ens is not self.handed[i]:
+                for f in FIELDS:
+                    getattr(work, f).copy_(getattr(ens, f))
+
+    def stage(self, obs, actions, y, eps_cur, alpha, feat_w) -> None:
+        for buf, src in ((self.obs, obs), (self.actions, actions),
+                         (self.y, y), (self.eps_cur, eps_cur),
+                         (self.alpha, alpha), (self.feat_w, feat_w)):
+            buf.copy_(src)
+
+    def body(self, acfg: TreeConfig, ccfg: TreeConfig, hp: SACHyper,
+             specs) -> None:
+        """Both critic boosting steps (gradients of 0.5 * (Q - y)^2 w.r.t.
+        theta), then the actor boosting step against the UPDATED critics;
+        the step's statistics into ``stats``."""
+        actor_specs, critic_specs = specs
+        A = hp.act_dim
+        X = self.obs
+        N = X.shape[0]
+        actor, critics = self.work[0], self.work[1:]
+        closses = []
+        for ens in critics:
+            theta = predict_sgd(ccfg, ens, X, critic_specs, 0, ens.capacity)
+            p = theta.detach().requires_grad_(True)
+            with torch.enable_grad():
+                q = q_torch(*_critic_wb(hp, p), self.actions,
+                            hp.q_func_type)
+                loss = 0.5 * torch.mean((q - self.y) ** 2)
+                (g,) = torch.autograd.grad(loss, p)
+            g = _clip_blocks(hp, g * N)
+            tree = boost_tree(ccfg, X, g, self.feat_w)
+            with profiling.span("write"):
+                _write_in_place(ens, tree)
+            closses.append(loss.detach())
+
+        theta_a = predict_sgd(acfg, actor, X, actor_specs, 0, actor.capacity)
+        qthetas = [predict_sgd(ccfg, ens, X, critic_specs, 0, ens.capacity)
+                   for ens in critics]
+        p = theta_a.detach().requires_grad_(True)
+        with torch.enable_grad():
+            a, logp = sample_squashed(p[:, :A], p[:, A:], self.eps_cur)
+            qs = [q_torch(*_critic_wb(hp, qt), a, hp.q_func_type)
+                  for qt in qthetas]
+            qmin = torch.amin(torch.stack(qs, 0), dim=0)
+            aloss = torch.mean(self.alpha * logp - qmin)
+            (ga,) = torch.autograd.grad(aloss, p)
+        ga = _clip_blocks(hp, ga * N)
+        tree = boost_tree(acfg, X, ga, self.feat_w)
+        with profiling.span("write"):
+            _write_in_place(actor, tree)
+        self.stats.copy_(torch.stack([torch.mean(torch.stack(closses)),
+                                      aloss.detach(),
+                                      torch.mean(logp.detach())]))
+
+    def hand_off(self, ensembles: Sequence[Ensemble]) -> list:
+        """Each learner's ensemble with the tree its working copy grew,
+        written by ``write_tree``; remembered for ``load``."""
+        self.handed = [_written(ens, work, 1)
+                       for ens, work in zip(ensembles, self.work)]
+        return self.handed
+
+
+def _sac_graphs(acfg: TreeConfig, ccfg: TreeConfig, hp: SACHyper, specs,
+                ensembles: Sequence[Ensemble], obs: torch.Tensor,
+                actions: torch.Tensor, feat_w: torch.Tensor) -> _SACGraphs:
+    """The graph set of everything a capture bakes in, the ensembles'
+    capacities among it (never a learner or an ensemble)."""
+    key = ("sac", obs.device, acfg, ccfg, hp, specs, tuple(obs.shape),
+           obs.dtype, tuple(actions.shape), len(ensembles) - 1,
+           tuple(e.capacity for e in ensembles), tuple(feat_w.shape),
+           feat_w.dtype, fit._DISABLE_FUSED_TREE)
+    return graphs.cached_graphs(key, lambda: _SACGraphs(
+        ensembles, obs, actions, feat_w))
 
 
 def sac_train_step(acfg: TreeConfig, ccfg: TreeConfig, hp: SACHyper,
@@ -133,10 +273,13 @@ def sac_train_step(acfg: TreeConfig, ccfg: TreeConfig, hp: SACHyper,
     prefixes; alpha a 0-d tensor; eps_next / eps_cur [N, A] the standard
     normal draws for the next-observation and the current actions.  Every
     ensemble must have room for one more tree.  Returns (actor ensemble,
-    tuple of critic ensembles, stats dict of 0-d device tensors)."""
+    tuple of critic ensembles, stats dict of 0-d device tensors).
+
+    The target is the step's eager head, summed through this module's
+    ``predict_sgd`` over the ensembles given; the boosting steps are one
+    ``graphs.run_step`` of ``_SACGraphs.body``."""
     actor_specs, critic_specs = specs
     A = hp.act_dim
-    N = obs.shape[0]
 
     # ---- target: y = R + disc * (1 - d) * (min_i Q_i^target - alpha lp')
     with profiling.span("target"):
@@ -152,39 +295,17 @@ def sac_train_step(acfg: TreeConfig, ccfg: TreeConfig, hp: SACHyper,
         y = (rewards + discs * (1.0 - dones)
              * (qmin_t - alpha * nlogp)).detach()
 
-    # ---- critic boosting steps: gradients of 0.5 * (Q - y)^2 w.r.t. theta
-    new_critics, closses = [], []
-    for ens in critic_ens:
-        theta = predict_sgd(ccfg, ens, obs, critic_specs, 0, ens.capacity)
-        p = theta.detach().requires_grad_(True)
-        with torch.enable_grad():
-            q = q_torch(*_critic_wb(hp, p), actions, hp.q_func_type)
-            loss = 0.5 * torch.mean((q - y) ** 2)
-            (g,) = torch.autograd.grad(loss, p)
-        g = _clip_blocks(hp, g * N)
-        new_critics.append(_boost(ccfg, ens, obs, g, feat_w))
-        closses.append(loss.detach())
-
-    # ---- actor boosting step against the UPDATED critics
-    theta_a = predict_sgd(acfg, actor_ens, obs, actor_specs, 0,
-                          actor_ens.capacity)
-    qthetas = [predict_sgd(ccfg, ens, obs, critic_specs, 0, ens.capacity)
-               for ens in new_critics]
-    p = theta_a.detach().requires_grad_(True)
-    with torch.enable_grad():
-        a, logp = sample_squashed(p[:, :A], p[:, A:], eps_cur)
-        qs = [q_torch(*_critic_wb(hp, qt), a, hp.q_func_type)
-              for qt in qthetas]
-        qmin = torch.amin(torch.stack(qs, 0), dim=0)
-        aloss = torch.mean(alpha * logp - qmin)
-        (ga,) = torch.autograd.grad(aloss, p)
-    ga = _clip_blocks(hp, ga * N)
-    new_actor = _boost(acfg, actor_ens, obs, ga, feat_w)
-
-    stats = dict(critic_loss=torch.mean(torch.stack(closses)),
-                 actor_loss=aloss.detach(),
-                 logp_mean=torch.mean(logp.detach()))
-    return new_actor, tuple(new_critics), stats
+    ensembles = (actor_ens,) + tuple(critic_ens)
+    g = _sac_graphs(acfg, ccfg, hp, specs, ensembles, obs, actions, feat_w)
+    g.load(ensembles)
+    g.stage(obs, actions, y, eps_cur, alpha, feat_w)
+    graphs.run_step(g.graphs, "step", obs.device,
+                    lambda: g.body(acfg, ccfg, hp, specs))
+    with profiling.span("write"):
+        new = g.hand_off(ensembles)
+    # a copy: the next step overwrites the buffer
+    stats = dict(zip(STATS, g.stats.clone()))
+    return new[0], tuple(new[1:]), stats
 
 
 def _to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
@@ -207,9 +328,11 @@ def run_sac_train_step(algo, obs: np.ndarray, actions: np.ndarray,
     synchronisation), then apply the ensemble-prefix target update and the
     temperature update.  Spans (utils/profiling.py): a ``minibatch``
     (learner "sac") holds ``update.stage`` (the counters, the packed copy
-    and the noise), the step's ``target``, ``candidates``, ``fit`` and
-    ``write`` spans and ``update.readback``; rl/sac.py opens the train
-    event's ``update`` around its steps."""
+    and the noise), the step's ``target``, the body's ``candidates``,
+    ``fit`` and ``write`` spans (on the card at a capture only), the
+    hand-off's ``write`` and ``update.readback``; the body's
+    ``graph.*`` counts fall in the ``minibatch`` itself.  rl/sac.py opens
+    the train event's ``update`` around its steps."""
     actor_lr = algo.actor.learner
     critic_lrs = [c.learner for c in algo.critics]
     hp = SACHyper(act_dim=algo.act_dim, q_func_type=algo.q_func_type,
