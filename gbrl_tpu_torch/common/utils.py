@@ -17,6 +17,7 @@ import numpy as np
 import torch as th
 
 from ..config import APPROVED_OPTIMIZERS, VALID_OPTIMIZER_ARGS
+from ..utils import profiling
 
 numerical_dtype = np.dtype("float32")
 categorical_dtype = np.dtype("S128")   # accepted on input, re-encoded to codes
@@ -266,10 +267,12 @@ class CategoryVocab:
 
         np.unique compresses the column to its uniques first, so the dict
         only sees O(uniques) keys per call (new codes are assigned in sorted
-        order of the batch's unseen values — deterministic)."""
+        order of the batch's unseen values — deterministic).  The codes
+        added are counted as ``vocab.new_codes`` (utils/profiling.py)."""
         N, F = cat.shape
         out = np.empty((N, F), dtype=np.int32)
         cb = self._canon_matrix(cat)                     # [N, F] S128
+        added = 0
         for f in range(F):
             m = self.maps[f]
             col = cb[:, f]
@@ -282,9 +285,12 @@ class CategoryVocab:
                 elif grow:
                     m[key] = len(m)
                     codes[u_idx] = m[key]
+                    added += 1
                 else:
                     codes[u_idx] = -1
             out[:, f] = codes[inv]
+        if added:
+            profiling.count("vocab.new_codes", added)
         return out
 
     def decode_table(self) -> List[List[bytes]]:

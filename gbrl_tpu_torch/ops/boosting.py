@@ -149,11 +149,12 @@ def _lr_columns(specs: Sequence[OptimizerSpec], O: int,
 
 
 def tree_prediction(cfg: TreeConfig, specs: Sequence[OptimizerSpec],
-                    tree: dict, t_idx: torch.Tensor,
-                    X: torch.Tensor) -> torch.Tensor:
+                    tree: dict, t_idx: torch.Tensor, X: torch.Tensor,
+                    Xc: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The SGD contribution of one tree, at tree index ``t_idx``, to the
-    predictions of the rows X (leaf values are immutable once fit)."""
-    v_new = single_tree_leaf_values(cfg, tree, X)
+    predictions of the rows X (and their codes Xc); leaf values are
+    immutable once fit."""
+    v_new = single_tree_leaf_values(cfg, tree, X, Xc)
     return _lr_columns(specs, cfg.output_dim, t_idx)[None, :] * v_new
 
 

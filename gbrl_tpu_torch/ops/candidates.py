@@ -92,7 +92,9 @@ def categorical_candidate_mask(Xc: torch.Tensor, grad_norms: torch.Tensor,
     the top ones by average gradient norm stay (top-k over ranks where
     absent pairs rank -inf).  ``sample_w`` masks padded rows out of the
     counts.  With a ``mesh`` the rows are this rank's and the per-pair sums
-    are summed over the ranks."""
+    are summed over the ranks.  Nothing here reads the device from the host
+    and every shape comes from the arguments, so a CUDA graph can hold
+    it."""
     N, Fc = Xc.shape
     dev = Xc.device
     if sample_w is None:
@@ -111,5 +113,5 @@ def categorical_candidate_mask(Xc: torch.Tensor, grad_norms: torch.Tensor,
                       torch.full_like(cnt, float("-inf")))
     top_idx = torch.topk(avg, k).indices
     sel = torch.zeros((Fc * n_codes,), dtype=torch.bool, device=dev)
-    sel[top_idx] = True
+    sel.index_fill_(0, top_idx, True)
     return (sel & (cnt > 0)).reshape(Fc, n_codes)

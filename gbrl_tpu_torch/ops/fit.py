@@ -28,7 +28,10 @@ VMEM guards:
   default, ``_DISABLE_FUSED_TREE = True``), take the level path: per level
   K2 (``level_histogram_cuda``) then K3 (``level_score_cuda``);
 - trees with categorical columns take the general path in plain torch, with
-  their histograms through the K2 wrapper (``_level_histogram``).
+  their histograms through the K2 wrapper (``_level_histogram``); like the
+  level path it reads nothing back to the host and takes every shape from
+  its arguments, so the fused PPO update on categorical codes replays it
+  inside a CUDA graph (``rl/jit_update.py``).
 
 Each wrapper from ``ops/kernels.py`` launches its kernel on CUDA tensors and
 runs its plain version on CPU tensors.  Routing gathers directly where the

@@ -72,7 +72,14 @@ def sharded_ppo_update(cfg: TreeConfig, hp: PPOHyper, mesh: Mesh,
     host ints, both the same on every rank; ``n_trees0`` the ensemble's tree
     count as a host int (read from the device when None).  The ensemble
     must have room for U more trees.  Returns (ensemble, entropy trace),
-    the same on every rank."""
+    the same on every rank.  A configuration with categorical features
+    raises: the rollout gathered here is numeric only."""
+    if cfg.n_cat_features > 0:
+        raise ValueError(
+            f"sharded_ppo_update takes numeric features only; this "
+            f"configuration has {cfg.n_cat_features} categorical features: "
+            "train it in one process (rl/jit_update.py run_ppo_update takes "
+            "the rollout's codes)")
     dev = X.device
     mb_idx = torch.as_tensor(mb_idx).to(dev, torch.int64)
     mb_n = [int(n) for n in mb_n]

@@ -1,5 +1,6 @@
 """Rollout storage with GAE(lambda) advantage estimation (a copy of
-``gbrl_tpu/rl/buffers.py``: numpy only, the same in both packages).
+``gbrl_tpu/rl/buffers.py``, numpy only, with one addition: the rollout's
+categorical codes beside its numeric block).
 
 The reference delegates RL plumbing to the companion repo GBRL_SB3
 (README.md:19) built on stable-baselines3; this is a self-contained
@@ -11,13 +12,21 @@ import numpy as np
 
 
 class RolloutBuffer:
+    """``obs`` holds the numeric block of each observation; with
+    ``cat_dim`` > 0, ``codes`` [n_steps, n_envs, cat_dim] int32 holds the
+    categorical block as the learner's vocabulary codes (the numeric block
+    may then have width 0)."""
+
     def __init__(self, n_steps: int, n_envs: int, obs_dim: int,
-                 gamma: float = 0.99, gae_lambda: float = 0.95):
+                 gamma: float = 0.99, gae_lambda: float = 0.95,
+                 cat_dim: int = 0):
         self.n_steps = n_steps
         self.n_envs = n_envs
         self.gamma = gamma
         self.gae_lambda = gae_lambda
         self.obs = np.zeros((n_steps, n_envs, obs_dim), dtype=np.float32)
+        self.codes = (np.zeros((n_steps, n_envs, cat_dim), dtype=np.int32)
+                      if cat_dim else None)
         self.actions = np.zeros((n_steps, n_envs), dtype=np.int64)
         self.cont_actions = None
         self.rewards = np.zeros((n_steps, n_envs), dtype=np.float32)
@@ -26,9 +35,11 @@ class RolloutBuffer:
         self.log_probs = np.zeros((n_steps, n_envs), dtype=np.float32)
         self.pos = 0
 
-    def add(self, obs, action, reward, done, value, log_prob):
+    def add(self, obs, action, reward, done, value, log_prob, codes=None):
         t = self.pos
         self.obs[t] = obs
+        if codes is not None:
+            self.codes[t] = codes
         if action.dtype.kind == "f":
             if self.cont_actions is None:
                 self.cont_actions = np.zeros(
@@ -74,6 +85,13 @@ class RolloutBuffer:
                 self.log_probs.reshape(n), self.advantages.reshape(n),
                 self.returns.reshape(n), self.values.reshape(n),
                 1.0 - self.dones.reshape(n))
+
+    def flat_codes(self):
+        """The categorical block flattened as ``flat`` flattens the rows:
+        [n, cat_dim] int32, or None without one."""
+        if self.codes is None:
+            return None
+        return self.codes.reshape(self.n_steps * self.n_envs, -1)
 
 
 class ReplayBuffer:

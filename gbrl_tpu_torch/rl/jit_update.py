@@ -3,12 +3,13 @@ runs as one loop over device tensors (counterpart of
 ``gbrl_tpu/rl/jit_update.py``).
 
 The rollout is copied to the device once; then each minibatch runs predict
--> PPO-loss gradients -> candidates (K1) -> one tree (the level path or K6)
--> an incremental prediction update, with no host synchronisation inside
-the loop: the minibatch plan and the tree indices are host integers, and
-every per-minibatch value stays a device tensor.  Where the JAX package has
-``jax.jit`` and ``lax.fori_loop``, this is a Python loop that queues its
-launches and returns.
+-> PPO-loss gradients -> candidates (K1; the categorical mask where the
+rollout has codes) -> one tree (the level path or K6; the general path
+with codes) -> an incremental prediction update, with no host
+synchronisation inside the loop: the minibatch plan and the tree indices
+are host integers, and every per-minibatch value stays a device tensor.
+Where the JAX package has ``jax.jit`` and ``lax.fori_loop``, this is a
+Python loop that queues its launches and returns.
 
 ``ppo_update_loop`` runs the minibatch body of ``_PPOGraphs`` once a
 minibatch through ``rl/graphs.py`` ``run_step``: the body reads static
@@ -40,7 +41,7 @@ from ..ensemble import Ensemble, ensure_capacity
 from ..ops import fit
 from ..ops.boosting import (_TREE_FIELDS, _masked_candidates, predict_sgd,
                             tree_prediction, write_tree)
-from ..ops.candidates import bucketize
+from ..ops.candidates import bucketize, categorical_candidate_mask
 from ..ops.fit import build_tree, standardize_l2
 from ..optimizers import OptimizerSpec
 from ..utils import profiling
@@ -118,12 +119,17 @@ def ppo_update_loop(cfg: TreeConfig, hp: PPOHyper, n_updates: int,
                     old_logp: torch.Tensor, adv: torch.Tensor,
                     ret: torch.Tensor, specs: Tuple[OptimizerSpec, ...],
                     feat_w: torch.Tensor, n_trees0: int,
-                    valid: Optional[torch.Tensor] = None
-                    ) -> Tuple[Ensemble, torch.Tensor]:
+                    valid: Optional[torch.Tensor] = None,
+                    Xc: Optional[torch.Tensor] = None,
+                    feat_w_cat: Optional[torch.Tensor] = None,
+                    n_codes: int = 0) -> Tuple[Ensemble, torch.Tensor]:
     """Run ``n_updates`` PPO minibatch boosting steps on the tensors'
     device, with no host synchronisation.
 
-    X [B, F] rollout observations; mb_idx [U, mb] int64 row indices into X
+    X [B, F] rollout observations (F may be 0); Xc [B, Fc] int32 their
+    categorical codes or None, feat_w_cat [Fc] their weights and n_codes
+    the code space (``GBTLearner._n_codes``); mb_idx [U, mb] int64 row
+    indices into X
     (on the device; rows past mb_n[u] are padding and masked); mb_n [U]
     host ints; actions / old_logp / adv / ret / valid [B]; n_trees0 the
     ensemble's tree count (a host int, kept by the caller).  Predictions
@@ -136,9 +142,9 @@ def ppo_update_loop(cfg: TreeConfig, hp: PPOHyper, n_updates: int,
     if n_updates == 0:
         return ens, entropy_trace([], X.device)
     g = _ppo_graphs(cfg, hp, specs, n_updates, ens, X, mb_idx, feat_w,
-                    valid is not None)
+                    valid is not None, Xc, n_codes)
     g.load(cfg, specs, ens, X, mb_idx, actions, old_logp, adv, ret, feat_w,
-           n_trees0, valid)
+           n_trees0, valid, Xc, feat_w_cat)
     span = profiling.spanner()
     for u in range(n_updates):
         n_u = int(mb_n[u])
@@ -176,17 +182,28 @@ def ppo_minibatch_tree(cfg: TreeConfig, hp: PPOHyper,
                        n_u: int, w: torch.Tensor, Xmb: torch.Tensor,
                        pmb: torch.Tensor, act: torch.Tensor,
                        old_logp: torch.Tensor, adv: torch.Tensor,
-                       ret: torch.Tensor):
+                       ret: torch.Tensor, Xc: Optional[torch.Tensor] = None,
+                       feat_w_cat: Optional[torch.Tensor] = None,
+                       n_codes: int = 0):
     """``ppo_minibatch_step`` up to its tree, which it does not write:
-    (tree, the tree index as a device tensor, the mean policy entropy)."""
+    (tree, the tree index as a device tensor, the mean policy entropy).
+    With codes ``Xc`` the categorical candidates are every (feature, code)
+    pair of the weighted rows, ranked by the rows' squared gradient norms
+    as ``ops.boosting.boost_step`` ranks them."""
     span = profiling.span
     with span("grads"):
         grads = ppo_minibatch_grads(hp, pmb, act, old_logp, adv, ret, w)
         build = standardize_l2(grads, w) if cfg.score == "l2" else grads
+    cand_vals = Xb = cat_valid = None
     with span("candidates"):
-        cand_vals = _masked_candidates(cfg, Xmb, n_u)
-        Xb = bucketize(Xmb, cand_vals)
-    tree = build_tree(cfg, Xb, cand_vals, grads, build, w, feat_w)
+        if Xmb.shape[1] > 0:
+            cand_vals = _masked_candidates(cfg, Xmb, n_u)
+            Xb = bucketize(Xmb, cand_vals)
+        if Xc is not None:
+            cat_valid = categorical_candidate_mask(
+                Xc, torch.sum(grads * grads, dim=-1), cfg.n_bins, n_codes, w)
+    tree = build_tree(cfg, Xb, cand_vals, grads, build, w, feat_w, Xc,
+                      cat_valid, feat_w_cat)
     t_idx = (t if isinstance(t, torch.Tensor) else
              torch.full((), t, dtype=torch.int32, device=Xmb.device))
     # mean policy entropy of this minibatch (diagnostic)
@@ -200,13 +217,14 @@ class _PPOGraphs:
     """The static device buffers of one update's shapes and, on a CUDA
     device, the CUDA graphs of its minibatch body, one per real row count
     ``n_u`` (a partial last minibatch has its own).  The body reads the
-    rollout, the plan and the predictions from the buffers, gathers its
-    rows with the device counter ``u``, fits tree ``t``, stages the tree
-    and the entropy at row ``u``, adds the tree to the predictions and
-    counts ``u`` and ``t`` on."""
+    rollout (its codes too, where it has them), the plan and the
+    predictions from the buffers, gathers its rows with the device counter
+    ``u``, fits tree ``t``, stages the tree and the entropy at row ``u``,
+    adds the tree to the predictions and counts ``u`` and ``t`` on."""
 
     def __init__(self, ens: Ensemble, X: torch.Tensor, mb_idx: torch.Tensor,
-                 feat_w: torch.Tensor, U: int, valid: bool):
+                 feat_w: torch.Tensor, U: int, valid: bool,
+                 Xc: Optional[torch.Tensor], n_codes: int):
         dev = X.device
         B = X.shape[0]
 
@@ -219,6 +237,10 @@ class _PPOGraphs:
             empty((B,), torch.float32) for _ in range(3))
         self.valid = empty((B,), torch.float32) if valid else None
         self.feat_w = empty(tuple(feat_w.shape), feat_w.dtype)
+        self.Xc = None if Xc is None else empty(tuple(Xc.shape), torch.int32)
+        self.feat_w_cat = (None if Xc is None else
+                           empty((Xc.shape[1],), torch.float32))
+        self.n_codes = n_codes
         self.preds = empty((B, ens.output_dim), torch.float32)
         self.u = torch.zeros((1,), dtype=torch.int64, device=dev)
         self.t = torch.zeros((), dtype=torch.int32, device=dev)
@@ -232,16 +254,19 @@ class _PPOGraphs:
              ens: Ensemble, X: torch.Tensor, mb_idx: torch.Tensor,
              actions: torch.Tensor, old_logp: torch.Tensor,
              adv: torch.Tensor, ret: torch.Tensor, feat_w: torch.Tensor,
-             n_trees0: int, valid: Optional[torch.Tensor]) -> None:
+             n_trees0: int, valid: Optional[torch.Tensor],
+             Xc: Optional[torch.Tensor],
+             feat_w_cat: Optional[torch.Tensor]) -> None:
         """Refresh the static inputs (once per update): the rollout, the
         plan, the predictions of the ensemble's trees, the counters."""
         for buf, src in ((self.X, X), (self.plan, mb_idx),
                          (self.act, actions), (self.old_logp, old_logp),
                          (self.adv, adv), (self.ret, ret),
-                         (self.feat_w, feat_w), (self.valid, valid)):
+                         (self.feat_w, feat_w), (self.valid, valid),
+                         (self.Xc, Xc), (self.feat_w_cat, feat_w_cat)):
             if buf is not None:
                 buf.copy_(src)
-        self.preds.copy_(predict_sgd(cfg, ens, X, specs, 0, n_trees0))
+        self.preds.copy_(predict_sgd(cfg, ens, X, specs, 0, n_trees0, Xc))
         self.u.zero_()
         self.t.fill_(n_trees0)
 
@@ -255,14 +280,17 @@ class _PPOGraphs:
         tree, t_idx, ent = ppo_minibatch_tree(
             cfg, hp, specs, self.feat_w, self.t, n_u, w, self.X[idx],
             self.preds[idx], self.act[idx], self.old_logp[idx],
-            self.adv[idx], self.ret[idx])
+            self.adv[idx], self.ret[idx],
+            None if self.Xc is None else self.Xc[idx], self.feat_w_cat,
+            self.n_codes)
         with profiling.span("write"):
             for f, buf in self.stage.items():
                 buf.index_copy_(0, self.u, tree[f].reshape(
                     (1,) + buf.shape[1:]).to(buf.dtype))
             self.ent.index_copy_(0, self.u, ent.reshape(1))
         with profiling.span("predict_new"):
-            self.preds.add_(tree_prediction(cfg, specs, tree, t_idx, self.X))
+            self.preds.add_(tree_prediction(cfg, specs, tree, t_idx, self.X,
+                                            self.Xc))
         self.u.add_(1)
         self.t.add_(1)
 
@@ -270,12 +298,16 @@ class _PPOGraphs:
 def _ppo_graphs(cfg: TreeConfig, hp: PPOHyper,
                 specs: Tuple[OptimizerSpec, ...], U: int, ens: Ensemble,
                 X: torch.Tensor, mb_idx: torch.Tensor, feat_w: torch.Tensor,
-                valid: bool) -> _PPOGraphs:
+                valid: bool, Xc: Optional[torch.Tensor] = None,
+                n_codes: int = 0) -> _PPOGraphs:
+    # the code space is baked into a capture: a vocabulary that crosses a
+    # power of two gets a graph set of its own
     key = (X.device, cfg, hp, specs, U, tuple(X.shape), X.dtype,
            tuple(mb_idx.shape), tuple(feat_w.shape), feat_w.dtype, valid,
+           None if Xc is None else Xc.shape[1], n_codes,
            fit._DISABLE_FUSED_TREE)
     return cached_graphs(key, lambda: _PPOGraphs(ens, X, mb_idx, feat_w, U,
-                                                 valid))
+                                                 valid, Xc, n_codes))
 
 
 def entropy_trace(ents: list, dev: torch.device) -> torch.Tensor:
@@ -305,14 +337,29 @@ def minibatch_plan(n: int, n_epochs: int, batch_size: int, rng):
     return mb_idx[keep], mb_n[keep]
 
 
+def _numeric_block(obs: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """The rollout's numeric block [B, Fn] on ``dev``: a copy that waits
+    for the card (``sync.prepare``) where it has columns, none where it
+    has none."""
+    x = np.ascontiguousarray(obs, np.float32).reshape(len(obs), -1)
+    if x.shape[1] == 0:
+        return torch.zeros(x.shape, dtype=torch.float32, device=dev)
+    profiling.count_sync("prepare", dev.type == "cuda")
+    return torch.from_numpy(x).to(dev)
+
+
 def run_ppo_update(learner, obs: np.ndarray, actions: np.ndarray,
                    old_log_probs: np.ndarray, advantages: np.ndarray,
                    returns: np.ndarray, hp: PPOHyper, n_epochs: int,
                    batch_size: int, rng,
-                   valid: Optional[np.ndarray] = None) -> np.ndarray:
+                   valid: Optional[np.ndarray] = None,
+                   codes: Optional[np.ndarray] = None) -> np.ndarray:
     """Host wrapper: build the minibatch plan, copy the rollout to the
     device once (observations, one packed [B, 5] float block and the plan),
-    run the loop, read the entropy trace back.  Updates the learner in
+    run the loop, read the entropy trace back.  A learner with categorical
+    features takes ``obs`` as the numeric block and ``codes`` [B, Fc]
+    int32 as the categorical one (``PPO._features``), copied once more
+    (``sync.ppo_codes``).  Updates the learner in
     place; returns the trace.  Spans (utils/profiling.py): ``update``
     holds ``update.stage`` (everything before the loop), a ``minibatch``
     a tree and ``update.readback``."""
@@ -321,9 +368,17 @@ def run_ppo_update(learner, obs: np.ndarray, actions: np.ndarray,
             mb_idx, mb_n = minibatch_plan(len(obs), n_epochs, batch_size,
                                           rng)
             U = len(mb_n)
-            Xn, Xc = learner._prepare(obs, grow_vocab=False)
-            assert Xc is None, \
-                "the fused PPO update takes numerical features only"
+            dev = learner.torch_device
+            on_card = dev.type == "cuda"
+            if codes is None:
+                Xn, Xc = learner._prepare(obs, grow_vocab=False)
+                assert Xc is None, \
+                    "a learner with categorical features takes the codes"
+            else:
+                Xn = _numeric_block(obs, dev)
+                Xc = torch.from_numpy(
+                    np.ascontiguousarray(codes, np.int32)).to(dev)
+                profiling.count_sync("ppo_codes", on_card)
             # the host copy of n_trees: reading ens.n_trees would wait for
             # the card
             nt = learner._rl_host_n_trees
@@ -331,8 +386,6 @@ def run_ppo_update(learner, obs: np.ndarray, actions: np.ndarray,
                 nt = learner.get_num_trees()
             learner.ens = ensure_capacity(learner.ens, nt + U)
             learner._rl_host_n_trees = nt + U
-            dev = learner.torch_device
-            on_card = dev.type == "cuda"
             n = len(obs)
             cols = [np.asarray(actions, np.float32).reshape(n),
                     np.asarray(old_log_probs, np.float32).reshape(n),
@@ -345,10 +398,13 @@ def run_ppo_update(learner, obs: np.ndarray, actions: np.ndarray,
             plan = torch.from_numpy(mb_idx).to(dev)
             profiling.count_sync("ppo_plan", on_card)
             feat_w = learner._internal_feature_weights()
+            n_num = Xn.shape[1]
         learner.ens, ent_trace = ppo_update_loop(
             learner.cfg, hp, U, learner.ens, Xn, plan, mb_n.tolist(),
             pack[:, 0].to(torch.int64), pack[:, 1], pack[:, 2], pack[:, 3],
-            learner.specs, feat_w, nt, None if valid is None else pack[:, 4])
+            learner.specs, feat_w[:n_num], nt,
+            None if valid is None else pack[:, 4], Xc,
+            None if Xc is None else feat_w[n_num:], learner._n_codes())
         learner.total_iterations += U
         learner._pred_cache = None
         with profiling.span("update.readback"):

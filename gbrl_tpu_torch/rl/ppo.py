@@ -11,6 +11,15 @@ runs on the device (rl/jit_update.py).  The environment is any vector env
 with gymnasium's interface (``num_envs``, ``single_observation_space.shape``,
 ``single_action_space.n``, ``reset`` and ``step``); this module does not
 import gymnasium.
+
+Observations may be categorical: a space whose ``dtype`` is a string or
+object kind (``S``, ``U``, ``O``) gives the learner a vocabulary
+(common/utils.py ``CategoryVocab``).  Each env step's observation is
+encoded once on the host (``_features``: new values get new codes), the
+buffer keeps the codes beside the numeric block, the mirror walks them and
+the fused update fits on them through the general tree path.  A value first
+seen in a rollout matches no split until a tree splits on it, as a string
+never fitted matches none in NVlabs/gbrl.
 """
 from __future__ import annotations
 
@@ -20,6 +29,7 @@ import numpy as np
 import torch as th
 from torch.distributions import Categorical
 
+from ..common.utils import preprocess_features
 from ..models.actor_critic import ActorCritic
 from ..utils import profiling
 from .buffers import RolloutBuffer
@@ -54,7 +64,13 @@ class PPO:
             "all env groups must have the same number of envs"
         self.env = env
         self.n_envs = env.num_envs
-        obs_dim = int(np.prod(env.single_observation_space.shape))
+        space = env.single_observation_space
+        obs_dim = int(np.prod(space.shape))
+        self.categorical = np.dtype(
+            getattr(space, "dtype", np.float32)).kind in "SUO"
+        if self.categorical and not jit_update:
+            raise ValueError("categorical observations train through the "
+                             "fused update (jit_update=True)")
         n_actions = int(env.single_action_space.n)
         self.obs_dim = obs_dim
         self.n_actions = n_actions
@@ -76,6 +92,9 @@ class PPO:
             tree_struct=tree_struct, input_dim=obs_dim, output_dim=out_dim,
             policy_optimizer=popt, value_optimizer=vopt,
             shared_tree_struct=True, params=params, device=device)
+        if self.categorical and np.dtype(space.dtype).kind in "SU":
+            # every column a category: the vocabulary exists from here on
+            self.model.learner.set_feature_mapping(np.zeros(obs_dim, bool))
         self.n_steps = n_steps
         self.batch_size = batch_size
         self.n_epochs = n_epochs
@@ -107,7 +126,6 @@ class PPO:
             lr = self.model.learner
             if (isinstance(lr, SharedActorCriticLearner)
                     and all(s.algo == "SGD" for s in lr.specs)
-                    and lr.vocab is None
                     and getattr(lr, "student_model", None) is None):
                 from ..utils.host_mirror import HostMirror
                 self._mirror = HostMirror(lr)
@@ -126,14 +144,32 @@ class PPO:
         theta, value = self.model(obs, requires_grad=False, tensor=True)
         return theta.cpu(), value.cpu()
 
-    def _sample_np(self, obs: np.ndarray, rng, span=profiling.span):
+    def _features(self, obs, span=profiling.span):
+        """An env step's observation as (numeric block f32 [N, Fn],
+        categorical codes i32 [N, Fc] or None): numeric observations pass
+        as they are; categorical ones are encoded once, growing the
+        vocabulary, in a ``vocab.encode`` span."""
+        if not self.categorical:
+            return obs, None
+        lr = self.model.learner
+        with span("vocab.encode", rows=len(obs), features=lr.input_dim):
+            num, cat = preprocess_features(obs)
+            codes = lr.vocab.encode(cat, grow=True)
+        if num is None:
+            num = np.zeros((len(codes), 0), np.float32)
+        return num, codes
+
+    def _sample_np(self, obs: np.ndarray, rng, span=profiling.span,
+                   codes: Optional[np.ndarray] = None):
         """Numpy categorical sampling from mirror predictions: torch's
-        per-op overhead dominates tiny rollout batches.  Returns (actions
-        i64 [N], log_probs f32 [N], values [N]).  The mirror's forward is a
-        ``mirror.forward`` span (``span``: the rollout's, read once)."""
+        per-op overhead dominates tiny rollout batches.  ``obs`` is the
+        numeric block and ``codes`` the categorical one (``_features``).
+        Returns (actions i64 [N], log_probs f32 [N], values [N]).  The
+        mirror's forward is a ``mirror.forward`` span (``span``: the
+        rollout's, read once)."""
         mirror = self._get_mirror()
         with span("mirror.forward", rows=len(obs)):
-            preds = mirror.predict(np.asarray(obs, dtype=np.float32))
+            preds = mirror.predict(np.asarray(obs, dtype=np.float32), codes)
         logits = preds[:, :self.n_actions]
         logits = logits - logits.max(axis=1, keepdims=True)
         logp = logits - np.log(np.exp(logits).sum(axis=1, keepdims=True))
@@ -152,34 +188,47 @@ class PPO:
                 self.episode_rewards.append(self._ep_ret[g, i])
                 self._ep_ret[g, i] = 0.0
 
-    def collect_rollout(self, buffer: RolloutBuffer, obs, dones, rng):
-        use_np = self._get_mirror() is not None
-        span = profiling.spanner()
+    def _mirror_rollout(self, g: int, buffer: RolloutBuffer, obs, dones,
+                        rng, span):
+        """One rollout of env group ``g`` served by the host mirror, its
+        bootstrap values included."""
+        env = self.env_groups[g]
         for _ in range(self.n_steps):
-            if use_np:
-                actions_np, log_probs, values = self._sample_np(obs, rng,
-                                                                span)
-            else:
-                theta, value = self._policy_value(obs)
-                dist = Categorical(logits=theta)
-                actions = dist.sample()
-                log_probs = dist.log_prob(actions).numpy()
-                actions_np = actions.numpy()
-                values = value.detach().numpy().reshape(-1)
+            x, codes = self._features(obs, span)
+            actions_np, log_probs, values = self._sample_np(x, rng, span,
+                                                            codes)
+            next_obs, rewards, terms, truncs, _ = env.step(actions_np)
+            done_now = np.logical_or(terms, truncs).astype(np.float32)
+            buffer.add(x, actions_np, rewards, dones, values, log_probs,
+                       codes)
+            self._track_episodes(g, rewards, done_now)
+            obs, dones = next_obs, done_now
+        x, codes = self._features(obs, span)
+        with span("mirror.forward", rows=len(x)):
+            preds = self._get_mirror().predict(
+                np.asarray(x, dtype=np.float32), codes)
+        buffer.compute_returns(preds[:, self.n_actions], dones)
+        return obs, dones
+
+    def collect_rollout(self, buffer: RolloutBuffer, obs, dones, rng):
+        span = profiling.spanner()
+        if self._get_mirror() is not None:
+            return self._mirror_rollout(0, buffer, obs, dones, rng, span)
+        for _ in range(self.n_steps):
+            theta, value = self._policy_value(obs)
+            dist = Categorical(logits=theta)
+            actions = dist.sample()
+            log_probs = dist.log_prob(actions).numpy()
+            actions_np = actions.numpy()
+            values = value.detach().numpy().reshape(-1)
             next_obs, rewards, terms, truncs, _ = self.env.step(actions_np)
             done_now = np.logical_or(terms, truncs).astype(np.float32)
             buffer.add(obs, actions_np, rewards, dones, values, log_probs)
             self._track_episodes(0, rewards, done_now)
             obs, dones = next_obs, done_now
-        if use_np:
-            with span("mirror.forward", rows=len(obs)):
-                preds = self._get_mirror().predict(
-                    np.asarray(obs, dtype=np.float32))
-            last_values = preds[:, self.n_actions]
-        else:
-            _, last_value = self._policy_value(obs)
-            last_values = last_value.detach().numpy().reshape(-1)
-        buffer.compute_returns(last_values, dones)
+        _, last_value = self._policy_value(obs)
+        buffer.compute_returns(last_value.detach().numpy().reshape(-1),
+                               dones)
         return obs, dones
 
     def collect_rollout_pipelined(self, buffers, obs_list, dones_list, rng):
@@ -195,21 +244,8 @@ class PPO:
             # host mirror makes forwards ~us: no pipelining needed
             span = profiling.spanner()
             for g in range(G):
-                for _ in range(self.n_steps):
-                    a_np, log_probs, values = self._sample_np(
-                        obs_list[g], rng, span)
-                    next_obs, rewards, terms, truncs, _ = \
-                        self.env_groups[g].step(a_np)
-                    done_now = np.logical_or(terms, truncs).astype(np.float32)
-                    buffers[g].add(obs_list[g], a_np, rewards, dones_list[g],
-                                   values, log_probs)
-                    self._track_episodes(g, rewards, done_now)
-                    obs_list[g], dones_list[g] = next_obs, done_now
-                with span("mirror.forward", rows=len(obs_list[g])):
-                    boot = mirror.predict(
-                        np.asarray(obs_list[g], dtype=np.float32))
-                buffers[g].compute_returns(boot[:, na].reshape(-1),
-                                           dones_list[g])
+                obs_list[g], dones_list[g] = self._mirror_rollout(
+                    g, buffers[g], obs_list[g], dones_list[g], rng, span)
             return obs_list, dones_list
         futures = [learner.predict_async(obs_list[g]) for g in range(G)]
         for _ in range(self.n_steps):
@@ -241,17 +277,16 @@ class PPO:
         lr = self.model.learner
         return (self.jit_update
                 and isinstance(lr, SharedActorCriticLearner)
-                and all(s.algo == "SGD" for s in lr.specs)
-                and lr.vocab is None)
+                and all(s.algo == "SGD" for s in lr.specs))
 
     def update(self, buffer: RolloutBuffer, rng):
         """PPO epochs over minibatches; one tree per minibatch update.
 
         Default path: the whole update phase (every epoch x minibatch) runs
         as one loop on the device (rl/jit_update.ppo_update_loop), with no
-        host synchronisation per minibatch.  The facade path below is kept
-        for Adam / categorical / separate-learner configs and as the
-        semantics reference.
+        host synchronisation per minibatch; it takes the rollout's
+        categorical codes too.  The facade path below is kept for Adam /
+        separate-learner configs and as the semantics reference.
 
         Predictions for the whole rollout are fetched through the learner's
         incremental cache: after each tree only the NEW tree is evaluated on
@@ -261,6 +296,8 @@ class PPO:
         flats = [b.flat() for b in buffers]
         obs, actions, old_log_probs, advantages, returns, _, valid = (
             np.concatenate([f[i] for f in flats]) for i in range(7))
+        codes = (np.concatenate([b.flat_codes() for b in buffers])
+                 if self.categorical else None)
         if self._can_jit_update():
             from .jit_update import PPOHyper, run_ppo_update
             hp = PPOHyper(
@@ -271,7 +308,7 @@ class PPO:
                 value_clip=self.max_value_grad_norm or 0.0)
             run_ppo_update(self.model.learner, obs, actions, old_log_probs,
                            advantages, returns, hp, self.n_epochs,
-                           self.batch_size, rng, valid=valid)
+                           self.batch_size, rng, valid=valid, codes=codes)
             return
         # facade path appends trees outside the host counter's view
         self.model.learner._rl_host_n_trees = None
@@ -321,8 +358,13 @@ class PPO:
             o, _ = e.reset(seed=seed + g * self.n_envs)
             obs_list.append(o)
             dones_list.append(np.zeros(self.n_envs, dtype=np.float32))
-        buffers = [RolloutBuffer(self.n_steps, self.n_envs, self.obs_dim,
-                                 self.gamma, self.gae_lambda)
+        num_dim, cat_dim = self.obs_dim, 0
+        if self.categorical:
+            lr = self.model.learner
+            lr._infer_mapping_from(obs_list[0])
+            num_dim, cat_dim = lr.cfg.n_num_features, lr.cfg.n_cat_features
+        buffers = [RolloutBuffer(self.n_steps, self.n_envs, num_dim,
+                                 self.gamma, self.gae_lambda, cat_dim)
                    for _ in range(G)]
         self._buffers = buffers   # final-rollout diagnostics (tests)
         # preallocate ensemble capacity for the whole run: one growth up
