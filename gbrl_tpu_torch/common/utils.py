@@ -11,7 +11,9 @@ learner owns the vocabulary) instead of S128 byte strings.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple, Union
+import itertools
+import operator
+from typing import Dict, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch as th
@@ -244,39 +246,152 @@ def ensure_leaf_output(array: th.Tensor, tensor: bool, requires_grad: bool):
     return t
 
 
+class _VocabTable(NamedTuple):
+    """``CategoryVocab``'s maps as arrays, for ``U{width}`` cells: every
+    entry such a cell can equal, sorted by a uint64 key that is the
+    wrapping sum of its words times ``mult`` and its feature's term (odd
+    multiples, so equal keys and equal words mean equal features; keys
+    that collide only cost misses)."""
+    dicts: tuple            # the maps it was read from, and their sizes
+    sizes: tuple
+    width: int
+    keys: np.ndarray        # [K] uint64, sorted
+    words: np.ndarray       # [K, width // 2] uint64
+    codes: np.ndarray       # [K] int32
+    mult: np.ndarray        # [width // 2] uint64
+    feat_terms: np.ndarray  # [Fc] uint64
+
+
 class CategoryVocab:
     """Per-feature string -> int32 code dictionaries (replaces the
     reference's S128 string storage, types.h MAX_CHAR_SIZE=128).
 
     Values are canonicalized to their first 128 UTF-8 bytes (the reference
     truncates identically).
+
+    ``encode`` first looks the whole batch up in a table of the (feature,
+    value) pairs the maps hold (``_VocabTable``); only the cells it misses
+    go through the per-feature dicts.  The table holds each value as the
+    UCS4 words of a unicode array, so it serves ``U`` batches of at most 32
+    characters: their UTF-8 form is at most 128 bytes, never truncated, so
+    equal words are equal canonical keys.  The maps grow by insertion: the
+    table takes in the entries added since it was read, and is read anew
+    when ``maps`` or one of its dicts is replaced, a map shrinks, or for
+    another string width.
     """
     STRIDE = 128
+    MAX_TABLE_CHARS = STRIDE // 4       # UTF-8 spends at most 4 bytes a char
 
     def __init__(self, n_features: int):
         # bytes (<=128) -> code, insertion-ordered
         self.maps: List[Dict[bytes, int]] = [dict() for _ in range(n_features)]
+        self._table: Optional[_VocabTable] = None
 
     def _canon_matrix(self, cat: np.ndarray) -> np.ndarray:
         return np.char.encode(cat.astype(str), "utf-8").astype(
             f"S{self.STRIDE}")
 
+    @staticmethod
+    def _words(cat: np.ndarray, width: int) -> np.ndarray:
+        """[N, F] or [K] unicode -> [N * F, width // 2] uint64: each cell's
+        UCS4 words, two to a uint64 (``width`` even, padded with NULs)."""
+        return np.ascontiguousarray(cat, dtype=f"U{width}").view(
+            np.uint64).reshape(-1, width // 2)
+
+    def _lookup_table(self, width: int) -> _VocabTable:
+        t = self._table
+        if t is not None and not (t.width == width
+                                  and len(self.maps) == len(t.dicts)
+                                  and all(map(operator.is_, self.maps,
+                                              t.dicts))):
+            t = None
+        sizes = tuple(map(len, self.maps))
+        if t is not None:
+            if t.sizes == sizes:
+                return t
+            if not all(map(operator.ge, sizes, t.sizes)):
+                t = None
+        vals, feats, codes = [], [], []
+        for f, m in enumerate(self.maps):
+            for key, code in itertools.islice(m.items(),
+                                              t.sizes[f] if t else 0, None):
+                try:
+                    s = key.decode("utf-8")
+                except UnicodeDecodeError:
+                    continue
+                # a U array drops trailing NULs, so such a key equals no cell
+                if len(s) <= width and not s.endswith("\x00"):
+                    vals.append(s)
+                    feats.append(f)
+                    codes.append(code)
+        if t is None:
+            mult = (np.arange(1, width // 2 + 2, dtype=np.uint64)
+                    * np.uint64(0x9E3779B97F4A7C15)) | np.uint64(1)
+            feat_terms = np.arange(len(sizes), dtype=np.uint64) * mult[-1]
+            t = _VocabTable((), (), width,
+                            np.zeros(0, np.uint64),
+                            np.zeros((0, width // 2), np.uint64),
+                            np.zeros(0, np.int32), mult[:-1], feat_terms)
+        words = self._words(np.array(vals, dtype=f"U{width}"), width)
+        keys = np.concatenate([t.keys, words @ t.mult + t.feat_terms[
+            np.array(feats, dtype=np.int64)]])
+        order = np.argsort(keys, kind="stable")
+        self._table = t._replace(
+            dicts=tuple(self.maps), sizes=sizes, keys=keys[order],
+            words=np.concatenate([t.words, words])[order],
+            codes=np.concatenate([t.codes, np.array(codes, np.int32)])[order])
+        return self._table
+
+    def _lookup(self, cat: np.ndarray):
+        """(codes [N, F] i32, hit [N, F] bool): the codes of the cells the
+        table holds where ``hit``, anything elsewhere; no hit where the
+        table cannot vouch for the batch's dtype."""
+        N, F = cat.shape
+        chars = cat.dtype.itemsize // 4
+        t = None
+        if cat.dtype.kind == "U" and 0 < chars <= self.MAX_TABLE_CHARS:
+            t = self._lookup_table(chars + chars % 2)
+        if t is None or len(t.keys) == 0 or cat.size == 0:
+            return np.empty((N, F), np.int32), np.zeros((N, F), bool)
+        words = self._words(cat, t.width)
+        keys = ((words @ t.mult).reshape(N, F)
+                + t.feat_terms[:F]).reshape(-1)
+        # the last entry is where a key above all the others must be
+        idx = np.searchsorted(t.keys[:-1], keys)
+        hit = t.keys.take(idx) == keys
+        # word for word: a row with any differing word is no hit
+        hit[np.flatnonzero(t.words.take(idx, axis=0) != words)
+            // words.shape[1]] = False
+        return t.codes.take(idx).reshape(N, F), hit.reshape(N, F)
+
     def encode(self, cat: np.ndarray, grow: bool) -> np.ndarray:
         """[N, Fc] str -> [N, Fc] int32; unseen values get new codes when
         grow=True (fitting) or -1 when frozen (prediction).
 
-        np.unique compresses the column to its uniques first, so the dict
-        only sees O(uniques) keys per call (new codes are assigned in sorted
-        order of the batch's unseen values — deterministic).  The codes
-        added are counted as ``vocab.new_codes`` (utils/profiling.py)."""
-        N, F = cat.shape
-        out = np.empty((N, F), dtype=np.int32)
-        cb = self._canon_matrix(cat)                     # [N, F] S128
+        The table lookup resolves the cells whose value the maps hold; the
+        rest (all cells of an input the table cannot serve) take the
+        per-feature path, where np.unique compresses the column's missed
+        cells to their uniques, so the dict only sees O(uniques) keys per
+        call (new codes are assigned in sorted order of the batch's unseen
+        values — deterministic).  The cells each way resolved are counted
+        as ``vocab.hit`` / ``vocab.miss``, the codes added as
+        ``vocab.new_codes`` (utils/profiling.py)."""
+        out, hit = self._lookup(cat)
+        n_hit = int(np.count_nonzero(hit))
+        if n_hit:
+            profiling.count("vocab.hit", n_hit)
+        n_miss = hit.size - n_hit
+        if n_miss == 0:
+            return out
+        profiling.count("vocab.miss", n_miss)
+        miss = ~hit
+        cols = np.flatnonzero(miss.any(axis=0))
+        cb = self._canon_matrix(cat[:, cols])            # [N, C] S128
         added = 0
-        for f in range(F):
+        for j, f in enumerate(cols):
             m = self.maps[f]
-            col = cb[:, f]
-            uniq, inv = np.unique(col, return_inverse=True)
+            rows = np.flatnonzero(miss[:, f])
+            uniq, inv = np.unique(cb[rows, j], return_inverse=True)
             codes = np.empty(len(uniq), dtype=np.int32)
             for u_idx, u in enumerate(uniq):
                 key = bytes(u)
@@ -288,7 +403,7 @@ class CategoryVocab:
                     added += 1
                 else:
                     codes[u_idx] = -1
-            out[:, f] = codes[inv]
+            out[rows, f] = codes[inv]
         if added:
             profiling.count("vocab.new_codes", added)
         return out

@@ -25,7 +25,10 @@ reference only has stdout verbose prints, SURVEY §5).
   ``cache.delta`` / ``cache.miss`` / ``cache.unkeyed`` (the learners'
   prediction cache) and ``graph.capture`` / ``graph.replay`` /
   ``graph.eager`` (the fused updates' steps on the card: captured as a
-  CUDA graph, replayed, or run as a capture's warm-up; ``rl/graphs.py``).
+  CUDA graph, replayed, or run as a capture's warm-up; ``rl/graphs.py``)
+  and ``vocab.hit`` / ``vocab.miss`` / ``vocab.new_codes`` (categorical
+  cells ``CategoryVocab.encode`` resolved by its table or by its
+  per-feature path, and the codes it added; ``common/utils.py``).
   ``collect()`` holds counts back from a block (a graph's capture).
 """
 from __future__ import annotations
