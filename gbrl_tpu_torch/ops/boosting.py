@@ -17,6 +17,7 @@ import torch
 from ..config import TreeConfig
 from ..ensemble import Ensemble
 from ..optimizers import OptimizerSpec, scheduler_lr, sgd_coeff
+from ..utils import profiling
 from .candidates import (bucketize, categorical_candidate_mask,
                          numerical_candidates, quantile_index)
 from .fit import build_tree, standardize_l2
@@ -84,10 +85,13 @@ def apply_control_variates(cfg: TreeConfig, ens: Ensemble, Xn: torch.Tensor,
                            mesh=None) -> torch.Tensor:
     """Gradient variance reduction (fitter.cpp:585-633), applied only when
     the ensemble already has trees (fitter.cpp:53-55).  The momentum is
-    per row (K4 / K5 on this rank's rows); its moments are global."""
-    mom = cv_momentum(cfg, ens, Xn, Xc)                       # bias-corrected
-    adjusted = _cv_adjust(grads, mom, sample_w, mesh)
-    return torch.where(ens.n_trees > 0, adjusted, grads)
+    per row (K4 / K5 on this rank's rows); its moments are global.  A
+    ``cv`` span (utils/profiling.py) with the rows and the tree slots the
+    momentum walks."""
+    with profiling.span("cv", rows=grads.shape[0], trees=ens.capacity):
+        mom = cv_momentum(cfg, ens, Xn, Xc)                   # bias-corrected
+        adjusted = _cv_adjust(grads, mom, sample_w, mesh)
+        return torch.where(ens.n_trees > 0, adjusted, grads)
 
 
 def boost_step(cfg: TreeConfig, ens: Ensemble, Xn: torch.Tensor,

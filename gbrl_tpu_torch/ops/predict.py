@@ -154,7 +154,8 @@ def cv_momentum(cfg: TreeConfig, ens: Ensemble, Xn: torch.Tensor,
     m_T = (1-beta) * sum_t beta^(T-1-t) * v_t, then * 1/sqrt(1-beta^T),
     expressed as a weighted leaf reduction."""
     dev = ens.device
-    beta = torch.tensor(cfg.cv_beta, dtype=torch.float32, device=dev)
+    # filled on the device: a tensor made from a host scalar waits for it
+    beta = torch.full((), cfg.cv_beta, dtype=torch.float32, device=dev)
     T = ens.capacity
     nt = ens.n_trees.to(torch.float32)
     t = torch.arange(T, dtype=torch.float32, device=dev)

@@ -23,6 +23,7 @@ import torch
 from .config import TreeConfig
 from .ensemble import Ensemble
 from .ops.predict import DEFAULT_TREE_CHUNK, _chunk_size, chunk_leaf_rel
+from .utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,45 +117,49 @@ def adam_delta(cfg: TreeConfig, ens: Ensemble, Xn: torch.Tensor,
     """
     dev = Xn.device
     N = Xn.shape[0]
-    O = cfg.output_dim
     T = ens.capacity
-    C = _chunk_size(T, tree_chunk)
-    f32 = dict(dtype=torch.float32, device=dev)
-    b1 = torch.tensor(spec.beta_1, **f32)
-    b2 = torch.tensor(spec.beta_2, **f32)
-    eps = torch.tensor(spec.eps, **f32)
+    with profiling.span("adam", rows=N, trees=T):
+        O = cfg.output_dim
+        C = _chunk_size(T, tree_chunk)
+        f32 = dict(dtype=torch.float32, device=dev)
+        # filled on the device: a tensor made from a host scalar is a copy
+        # that waits for the card
+        b1 = torch.full((), spec.beta_1, **f32)
+        b2 = torch.full((), spec.beta_2, **f32)
+        eps = torch.full((), spec.eps, **f32)
 
-    t_all = torch.arange(T, dtype=torch.int32, device=dev)
-    active_all = ((t_all >= start_tree) & (t_all < stop_tree)
-                  & (t_all < ens.n_trees)).to(torch.float32)
-    lr_all = scheduler_lr(spec, t_all)
-    tf = t_all.to(torch.float32) + 1.0
-    alpha_all = lr_all * torch.sqrt(1.0 - torch.pow(b2, tf)) / (
-        1.0 - torch.pow(b1, tf))
+        t_all = torch.arange(T, dtype=torch.int32, device=dev)
+        active_all = ((t_all >= start_tree) & (t_all < stop_tree)
+                      & (t_all < ens.n_trees)).to(torch.float32)
+        lr_all = scheduler_lr(spec, t_all)
+        tf = t_all.to(torch.float32) + 1.0
+        alpha_all = lr_all * torch.sqrt(1.0 - torch.pow(b2, tf)) / (
+            1.0 - torch.pow(b1, tf))
 
-    m_in = torch.zeros((N, O), **f32)
-    v_in = torch.zeros((N, O), **f32)
-    acc = torch.zeros((N, O), **f32)
-    for t0 in range(0, T, C):
-        sl = slice(t0, t0 + C)
-        rel = chunk_leaf_rel(ens.feat[sl], ens.thr[sl], ens.cat_code[sl],
-                             ens.is_split[sl], ens.is_numeric[sl], Xn, Xc,
-                             cfg.max_depth)                       # [N, C]
-        lv = ens.leaf_values[sl]
-        g = lv[torch.arange(C, device=dev)[None, :], rel]          # [N, C, O]
-        act = active_all[sl]
-        a = act[None, :, None]
-        cnt = torch.cumsum(act, dim=0)
-        cj = cnt[None, :, None]
-        # masked EMA in closed form:
-        #   m_j = b^{cnt_j} * (m_in + (1-b) * sum_{i<=j} a_i b^{-cnt_i} g_i)
-        inv1 = torch.pow(b1, -cnt)[None, :, None]
-        inv2 = torch.pow(b2, -cnt)[None, :, None]
-        B1 = torch.cumsum(a * inv1 * g, dim=1)
-        B2 = torch.cumsum(a * inv2 * g * g, dim=1)
-        m = torch.pow(b1, cj) * (m_in[:, None, :] + (1.0 - b1) * B1)
-        v = torch.pow(b2, cj) * (v_in[:, None, :] + (1.0 - b2) * B2)
-        upd = a * alpha_all[sl][None, :, None] * m / (torch.sqrt(v) + eps)
-        acc = acc + torch.sum(upd, dim=1)
-        m_in, v_in = m[:, -1, :], v[:, -1, :]
-    return acc * _col_mask(spec, O, dev)[None, :]
+        m_in = torch.zeros((N, O), **f32)
+        v_in = torch.zeros((N, O), **f32)
+        acc = torch.zeros((N, O), **f32)
+        for t0 in range(0, T, C):
+            sl = slice(t0, t0 + C)
+            rel = chunk_leaf_rel(ens.feat[sl], ens.thr[sl], ens.cat_code[sl],
+                                 ens.is_split[sl], ens.is_numeric[sl], Xn, Xc,
+                                 cfg.max_depth)                   # [N, C]
+            lv = ens.leaf_values[sl]
+            g = lv[torch.arange(C, device=dev)[None, :], rel]      # [N, C, O]
+            act = active_all[sl]
+            a = act[None, :, None]
+            cnt = torch.cumsum(act, dim=0)
+            cj = cnt[None, :, None]
+            # masked EMA in closed form:
+            #   m_j = b^{cnt_j} (m_in + (1-b) sum_{i<=j} a_i b^{-cnt_i} g_i)
+            inv1 = torch.pow(b1, -cnt)[None, :, None]
+            inv2 = torch.pow(b2, -cnt)[None, :, None]
+            B1 = torch.cumsum(a * inv1 * g, dim=1)
+            B2 = torch.cumsum(a * inv2 * g * g, dim=1)
+            m = torch.pow(b1, cj) * (m_in[:, None, :] + (1.0 - b1) * B1)
+            v = torch.pow(b2, cj) * (v_in[:, None, :] + (1.0 - b2) * B2)
+            upd = (a * alpha_all[sl][None, :, None] * m
+                   / (torch.sqrt(v) + eps))
+            acc = acc + torch.sum(upd, dim=1)
+            m_in, v_in = m[:, -1, :], v[:, -1, :]
+        return acc * _col_mask(spec, O, dev)[None, :]

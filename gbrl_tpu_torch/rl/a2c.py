@@ -15,6 +15,7 @@ import torch as th
 from torch.distributions import Categorical
 
 from ..models.actor_critic import ActorCritic
+from ..utils import profiling
 from .buffers import RolloutBuffer
 
 
@@ -85,8 +86,12 @@ class A2C:
                 and getattr(lr, "student_model", None) is None
                 and hasattr(lr, "ens"))
 
-    def _sample_np(self, obs, rng, mirror):
-        preds = mirror.predict(np.asarray(obs, dtype=np.float32))
+    def _sample_np(self, obs, rng, mirror, span=profiling.span):
+        """Numpy categorical sampling from mirror predictions; the mirror's
+        forward is a ``mirror.forward`` span (``span``: the rollout's, read
+        once).  Returns (actions i64 [N], log_probs f32 [N], values [N])."""
+        with span("mirror.forward", rows=len(obs)):
+            preds = mirror.predict(np.asarray(obs, dtype=np.float32))
         na = self.n_actions
         logits = preds[:, :na] - preds[:, :na].max(axis=1, keepdims=True)
         logp = logits - np.log(np.exp(logits).sum(axis=1, keepdims=True))
@@ -97,12 +102,85 @@ class A2C:
         lp = np.take_along_axis(logp, actions[:, None], axis=1)[:, 0]
         return actions, lp.astype(np.float32), preds[:, na]
 
+    def collect_rollout(self, buffer: RolloutBuffer, obs, dones, rng):
+        """``n_steps`` env steps into ``buffer``, then the bootstrap values
+        and the returns; served by the host mirror where there is one.
+        Returns the next (obs, dones)."""
+        span = profiling.spanner()
+        mirror = self._get_mirror()
+        for _ in range(self.n_steps):
+            if mirror is not None:
+                a_np, log_probs, values = self._sample_np(obs, rng, mirror,
+                                                          span)
+            else:
+                theta, value = self.model(obs, requires_grad=False)
+                theta, value = theta.cpu(), value.cpu()
+                dist = Categorical(logits=theta)
+                actions = dist.sample()
+                log_probs = dist.log_prob(actions).numpy()
+                a_np = actions.numpy()
+                values = value.detach().numpy().reshape(-1)
+            next_obs, rewards, terms, truncs, _ = self.env.step(a_np)
+            done_now = np.logical_or(terms, truncs).astype(np.float32)
+            buffer.add(obs, a_np, rewards, dones, values, log_probs)
+            self._ep_ret += rewards
+            for i in range(self.n_envs):
+                if done_now[i]:
+                    self.episode_rewards.append(self._ep_ret[i])
+                    self._ep_ret[i] = 0.0
+            obs, dones = next_obs, done_now
+        if mirror is not None:
+            with span("mirror.forward", rows=len(obs)):
+                last_values = mirror.predict(
+                    np.asarray(obs, dtype=np.float32))[:, self.n_actions]
+        else:
+            _, last_value = self.model(obs, requires_grad=False)
+            last_values = last_value.detach().cpu().numpy().reshape(-1)
+        buffer.compute_returns(last_values, dones)
+        return obs, dones
+
+    def update(self, buffer: RolloutBuffer):
+        """One tree from the rollout in ``buffer``: the fused device update
+        (rl/jit_a2c.py), or the facade path (the model's forward, torch's
+        autograd and ``ActorCritic.step``) where it does not apply."""
+        b_obs, b_act, _, adv, ret, _, valid = buffer.flat()
+        mirror = self._get_mirror()
+        if self._use_jit_update():
+            from .jit_a2c import A2CHyper, run_a2c_update
+            hp = A2CHyper(n_actions=self.n_actions,
+                          ent_coef=self.ent_coef, vf_coef=self.vf_coef,
+                          normalize_advantage=self.normalize_advantage)
+            run_a2c_update(self.model.learner, b_obs, b_act, adv, ret,
+                           valid, hp, mirror=mirror)
+            return
+        theta, values = self.model(b_obs, requires_grad=True)
+        dev = theta.device
+        dist = Categorical(logits=theta)
+        w = th.as_tensor(valid, device=dev)
+        nw = w.sum().clamp(min=1.0)
+        adv_t = th.as_tensor(adv, device=dev)
+        if self.normalize_advantage:
+            m = (adv_t * w).sum() / nw
+            var = (w * (adv_t - m) ** 2).sum() / (nw - 1.0).clamp(min=1.0)
+            adv_t = (adv_t - m) / (var.sqrt() + 1e-8)
+        log_prob = dist.log_prob(th.as_tensor(b_act, device=dev))
+        policy_loss = -(w * adv_t * log_prob).sum() / nw
+        entropy_loss = -(w * dist.entropy()).sum() / nw
+        (policy_loss + self.ent_coef * entropy_loss).backward()
+        value_loss = self.vf_coef * 0.5 * (
+            w * (th.as_tensor(ret, device=dev) - values) ** 2).sum() / nw
+        value_loss.backward()
+        self.model.step()
+        if mirror is not None:
+            mirror.sync()
+
     def learn(self, total_timesteps: int, seed: int = 0):
         rng = np.random.default_rng(seed)
         obs, _ = self.env.reset(seed=seed)
         dones = np.zeros(self.n_envs, dtype=np.float32)
         buffer = RolloutBuffer(self.n_steps, self.n_envs, self.obs_dim,
                                self.gamma, self.gae_lambda)
+        self._buffer = buffer     # the last rollout (diagnostics, tests)
         self.curve = []
         steps, it = 0, 0
         mirror = self._get_mirror()
@@ -111,6 +189,7 @@ class A2C:
             # ensure_capacity becomes a host-only no-op
             from ..ensemble import ensure_capacity
             lr = self.model.learner
+            profiling.count_sync("a2c_n_trees", lr.ens.n_trees.is_cuda)
             n0 = int(lr.ens.n_trees)
             iters_planned = -(-total_timesteps
                               // (self.n_steps * self.n_envs))
@@ -122,65 +201,13 @@ class A2C:
             # path only syncs after each update
             mirror.sync()
         while steps < total_timesteps:
-            for _ in range(self.n_steps):
-                if mirror is not None:
-                    a_np, log_probs, values = self._sample_np(
-                        obs, rng, mirror)
-                else:
-                    theta, value = self.model(obs, requires_grad=False)
-                    theta, value = theta.cpu(), value.cpu()
-                    dist = Categorical(logits=theta)
-                    actions = dist.sample()
-                    log_probs = dist.log_prob(actions).numpy()
-                    a_np = actions.numpy()
-                    values = value.detach().numpy().reshape(-1)
-                next_obs, rewards, terms, truncs, _ = self.env.step(a_np)
-                done_now = np.logical_or(terms, truncs).astype(np.float32)
-                buffer.add(obs, a_np, rewards, dones, values, log_probs)
-                self._ep_ret += rewards
-                for i in range(self.n_envs):
-                    if done_now[i]:
-                        self.episode_rewards.append(self._ep_ret[i])
-                        self._ep_ret[i] = 0.0
-                obs, dones = next_obs, done_now
-            if mirror is not None:
-                last_values = mirror.predict(
-                    np.asarray(obs, dtype=np.float32))[:, self.n_actions]
-            else:
-                _, last_value = self.model(obs, requires_grad=False)
-                last_values = last_value.detach().cpu().numpy().reshape(-1)
-            buffer.compute_returns(last_values, dones)
-            b_obs, b_act, _, adv, ret, _, valid = buffer.flat()
-            if self._use_jit_update():
-                from .jit_a2c import A2CHyper, run_a2c_update
-                hp = A2CHyper(n_actions=self.n_actions,
-                              ent_coef=self.ent_coef, vf_coef=self.vf_coef,
-                              normalize_advantage=self.normalize_advantage)
-                run_a2c_update(self.model.learner, b_obs, b_act, adv, ret,
-                               valid, hp, mirror=mirror)
-            else:
-                theta, values = self.model(b_obs, requires_grad=True)
-                dev = theta.device
-                dist = Categorical(logits=theta)
-                w = th.as_tensor(valid, device=dev)
-                nw = w.sum().clamp(min=1.0)
-                adv_t = th.as_tensor(adv, device=dev)
-                if self.normalize_advantage:
-                    m = (adv_t * w).sum() / nw
-                    var = (w * (adv_t - m) ** 2).sum() \
-                        / (nw - 1.0).clamp(min=1.0)
-                    adv_t = (adv_t - m) / (var.sqrt() + 1e-8)
-                log_prob = dist.log_prob(th.as_tensor(b_act, device=dev))
-                policy_loss = -(w * adv_t * log_prob).sum() / nw
-                entropy_loss = -(w * dist.entropy()).sum() / nw
-                (policy_loss + self.ent_coef * entropy_loss).backward()
-                value_loss = self.vf_coef * 0.5 * (
-                    w * (th.as_tensor(ret, device=dev) - values) ** 2
-                ).sum() / nw
-                value_loss.backward()
-                self.model.step()
-                if mirror is not None:
-                    mirror.sync()
+            # spans (utils/profiling.py): an ``iteration`` holds the
+            # ``rollout`` and the ``update``
+            with profiling.span("iteration", it=it):
+                with profiling.span("rollout"):
+                    obs, dones = self.collect_rollout(buffer, obs, dones,
+                                                      rng)
+                self.update(buffer)
             steps += self.n_steps * self.n_envs
             it += 1
             ntr = getattr(self.model.learner, "_rl_host_n_trees", None)

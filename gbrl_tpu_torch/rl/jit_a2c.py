@@ -29,6 +29,7 @@ from ..ops.boosting import apply_control_variates, predict_sgd, write_tree
 from ..ops.candidates import bucketize, numerical_candidates
 from ..ops.fit import build_tree, standardize_l2
 from ..optimizers import OptimizerSpec, adam_delta
+from ..utils import profiling
 from .jit_update import normalized_advantage
 
 # the tree fields the mirror reads, in the order they are packed
@@ -119,28 +120,43 @@ def run_a2c_update(learner, obs: np.ndarray, actions: np.ndarray,
     """Host wrapper: copy the rollout to the device (observations and one
     packed [N, 4] float block), run the step, and append the returned tree
     to the host mirror from the same copy back as the stats.  Updates the
-    learner in place; returns the stats dict."""
-    Xn, Xc = learner._prepare(obs, grow_vocab=False)
-    assert Xc is None, "the fused A2C update takes numerical features only"
-    # the host copy of n_trees: reading ens.n_trees would wait for the card
-    nt = learner._rl_host_n_trees
-    if nt is None:
-        nt = int(learner.ens.n_trees)
-    learner.ens = ensure_capacity(learner.ens, nt + 1)
-    learner._rl_host_n_trees = nt + 1
-    n = len(obs)
-    pack = torch.from_numpy(np.stack(
-        [np.asarray(a, np.float32).reshape(n)
-         for a in (actions, adv, ret, valid)], axis=1)).to(
-        learner.torch_device)
-    new_ens, tree, stats = a2c_update(
-        learner.cfg, hp, learner.ens, Xn, pack[:, 0].to(torch.int64),
-        pack[:, 1], pack[:, 2], pack[:, 3], learner.specs,
-        learner._internal_feature_weights())
-    learner.ens = new_ens
-    learner.total_iterations += 1
-    learner._pred_cache = None
-    host_tree, stats = fetch_tree_and_stats(tree, stats, mirror is not None)
-    if mirror is not None:
-        mirror.append_tree(host_tree)
-    return stats
+    learner in place; returns the stats dict.  Spans (utils/profiling.py):
+    ``update`` holds ``update.stage`` (the copies in), the step (its
+    ``adam`` and ``cv`` spans) and ``update.readback``; the host waits are
+    counted as ``sync.prepare``, ``sync.feature_weights``,
+    ``sync.a2c_pack`` and ``sync.a2c_readback`` (``sync.a2c_n_trees``
+    where the host counter of trees is unset)."""
+    with profiling.span("update", algo="a2c"):
+        with profiling.span("update.stage"):
+            Xn, Xc = learner._prepare(obs, grow_vocab=False)
+            assert Xc is None, \
+                "the fused A2C update takes numerical features only"
+            on_card = learner.torch_device.type == "cuda"
+            # the host copy of n_trees: reading ens.n_trees would wait for
+            # the card
+            nt = learner._rl_host_n_trees
+            if nt is None:
+                profiling.count_sync("a2c_n_trees", on_card)
+                nt = int(learner.ens.n_trees)
+            learner.ens = ensure_capacity(learner.ens, nt + 1)
+            learner._rl_host_n_trees = nt + 1
+            n = len(obs)
+            pack = torch.from_numpy(np.stack(
+                [np.asarray(a, np.float32).reshape(n)
+                 for a in (actions, adv, ret, valid)], axis=1)).to(
+                learner.torch_device)
+            profiling.count_sync("a2c_pack", on_card)
+            feat_w = learner._internal_feature_weights()
+        new_ens, tree, stats = a2c_update(
+            learner.cfg, hp, learner.ens, Xn, pack[:, 0].to(torch.int64),
+            pack[:, 1], pack[:, 2], pack[:, 3], learner.specs, feat_w)
+        learner.ens = new_ens
+        learner.total_iterations += 1
+        learner._pred_cache = None
+        with profiling.span("update.readback"):
+            profiling.count_sync("a2c_readback", on_card)
+            host_tree, stats = fetch_tree_and_stats(tree, stats,
+                                                    mirror is not None)
+            if mirror is not None:
+                mirror.append_tree(host_tree)
+        return stats
